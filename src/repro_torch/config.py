@@ -1,0 +1,234 @@
+"""Configuration of the PyTorch port.
+
+A copy of the parts of ``repro/config.py`` that the forward pushdown path
+reads (the port imports nothing of ``repro``):
+  * ``ModelConfig``   — one per architecture (see ``repro_torch.configs``).
+  * ``ShapeConfig``   — the input shape of a job.
+  * ``HapiConfig``    — knobs of the paper's technique (split/batch-adapt).
+  * ``HW``            — NVIDIA H100 SXM roofline constants.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+
+# ---------------------------------------------------------------------------
+# Hardware constants (NVIDIA H100 SXM, one card) — the roofline denominators.
+# NVIDIA's data sheet, dense rates at the full 700 W power limit.
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class HardwareSpec:
+    name: str = "h100-sxm"
+    peak_flops_bf16: float = 989e12          # FLOP/s, tensor cores, dense
+    peak_flops_f32: float = 67e12            # FLOP/s, outside the tensor cores
+    hbm_bandwidth: float = 3.35e12           # bytes/s
+    hbm_capacity: float = 80e9               # bytes
+
+
+HW = HardwareSpec()
+
+
+# ---------------------------------------------------------------------------
+# Model configuration
+# ---------------------------------------------------------------------------
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+
+    # --- attention options -------------------------------------------------
+    head_dim: Optional[int] = None           # default: d_model // n_heads
+    qk_norm: bool = False                    # qwen3
+    qkv_bias: bool = False                   # qwen1.5
+    attn_softcap: Optional[float] = None     # gemma2 (50.0)
+    logit_softcap: Optional[float] = None    # gemma2 (30.0)
+    sliding_window: Optional[int] = None     # gemma2 local layers (4096)
+    local_global_period: int = 0             # gemma2: 2 -> alternate local/global
+    rope_theta: float = 1e4
+
+    # --- mixture of experts -------------------------------------------------
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+
+    # --- state-space (mamba2 / jamba) ----------------------------------------
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_chunk: int = 256
+    conv_width: int = 4
+
+    # --- hybrid (jamba) -------------------------------------------------------
+    attn_period: int = 0                     # 1 attention layer per period
+    attn_pos: int = 3                        # position of attn inside period
+    moe_every: int = 0                       # MoE FFN every k-th sublayer
+
+    # --- encoder-decoder (whisper) -------------------------------------------
+    n_enc_layers: int = 0
+    n_dec_layers: int = 0
+    dec_seq: int = 256                       # transcript length for enc-dec cells
+
+    # --- multimodal (llava) ---------------------------------------------------
+    n_patches: int = 0                       # patch embeddings prepended (stub frontend)
+
+    # --- transfer-learning structure (the paper's object of study) -----------
+    freeze_frac: float = 0.75                # freeze index = round(frac * n_blocks)
+
+    # --- numerics -------------------------------------------------------------
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-6
+    vocab_pad_to: int = 512                  # pad vocab for clean TP sharding
+
+    # -----------------------------------------------------------------------
+    def __post_init__(self):
+        if self.family not in FAMILIES:
+            raise ValueError(f"unknown family {self.family!r}")
+
+    @property
+    def hdim(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    @property
+    def padded_vocab(self) -> int:
+        p = self.vocab_pad_to
+        return ((self.vocab_size + p - 1) // p) * p
+
+    @property
+    def d_inner(self) -> int:
+        """SSM inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    # --- block structure (split-candidate granularity) ----------------------
+    @property
+    def n_blocks(self) -> int:
+        """Number of blocks. Split candidates live at block boundaries."""
+        if self.family == "encdec":
+            return self.n_enc_layers  # splitting happens in the encoder prefix
+        if self.local_global_period:
+            return self.n_layers // self.local_global_period
+        if self.attn_period:
+            return self.n_layers // self.attn_period
+        return self.n_layers
+
+    @property
+    def freeze_index(self) -> int:
+        """Block index separating feature extraction from training (paper §2.3)."""
+        return max(1, min(self.n_blocks - 1, round(self.freeze_frac * self.n_blocks)))
+
+    # --- analytic parameter counts -------------------------------------------
+    def _attn_params(self) -> int:
+        hd = self.hdim
+        q = self.d_model * self.n_heads * hd
+        kv = 2 * self.d_model * self.n_kv_heads * hd
+        o = self.n_heads * hd * self.d_model
+        b = (self.n_heads + 2 * self.n_kv_heads) * hd if self.qkv_bias else 0
+        return q + kv + o + b
+
+    def _dense_ffn_params(self) -> int:
+        # gated (SwiGLU-style): up, gate, down
+        return 3 * self.d_model * self.d_ff
+
+    def _moe_ffn_params(self, active: bool) -> int:
+        per_expert = 3 * self.d_model * self.d_ff
+        router = self.d_model * self.n_experts
+        n = self.top_k if active else self.n_experts
+        return n * per_expert + router
+
+    def _ssm_params(self) -> int:
+        di, ns, nh = self.d_inner, self.ssm_state, self.ssm_nheads
+        in_proj = self.d_model * (2 * di + 2 * ns + nh)  # z, x, B, C, dt
+        conv = self.conv_width * (di + 2 * ns)
+        out = di * self.d_model
+        extra = nh * 3  # A_log, D, dt_bias
+        return in_proj + conv + out + extra
+
+    def block_params(self, active_only: bool = False) -> int:
+        """Params of one block (all sublayers inside it)."""
+        d = self.d_model
+        norm = 2 * d  # two norms per sublayer (approx, pre-norm archs)
+        if self.local_global_period:
+            # gemma2: one block == one (local, global) pair.
+            per = self._attn_params() + self._dense_ffn_params() + norm
+            return per * self.local_global_period
+        if self.family in ("dense", "vlm"):
+            return self._attn_params() + self._dense_ffn_params() + norm
+        if self.family == "moe":
+            return self._attn_params() + self._moe_ffn_params(active_only) + norm
+        if self.family == "ssm":
+            return self._ssm_params() + norm
+        if self.family == "hybrid":
+            total = 0
+            for i in range(self.attn_period):
+                mixer = self._attn_params() if i == self.attn_pos else self._ssm_params()
+                if self.moe_every and (i % self.moe_every == 1):
+                    ffn = self._moe_ffn_params(active_only)
+                else:
+                    ffn = self._dense_ffn_params()
+                total += mixer + ffn + norm
+            return total
+        if self.family == "encdec":
+            # one encoder layer (self-attn + ffn); decoder counted separately
+            return self._attn_params() + self._dense_ffn_params() + norm
+        raise ValueError(self.family)
+
+    def param_count(self, active_only: bool = False) -> int:
+        emb = self.padded_vocab * self.d_model
+        head = emb if not self.tie_embeddings else 0
+        body = self.n_blocks * self.block_params(active_only)
+        if self.family == "encdec":
+            dec = self.n_dec_layers * (
+                2 * self._attn_params() + self._dense_ffn_params() + 3 * self.d_model
+            )
+            body += dec
+        return emb + head + body + self.d_model  # final norm
+
+
+# ---------------------------------------------------------------------------
+# Input shape
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+# ---------------------------------------------------------------------------
+# Hapi (paper technique) configuration
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class HapiConfig:
+    enabled: bool = True
+    # Splitting algorithm (paper §5.4): C = bandwidth * window_s.
+    network_bandwidth: float = 1e9 / 8        # bytes/s (paper default: 1 Gbps)
+    window_s: float = 1.0
+    # Batch adaptation (paper §5.5).
+    cos_batch: int = 200                      # default COS batch size
+    # b_r_min. The paper uses 25; 32 was chosen for the TPU's 8-row sublane
+    # tiling and is kept so that both packages plan alike.
+    cos_batch_min: int = 32
+    cos_hbm_budget: float = HW.hbm_capacity   # per-card budget on the storage tier
+    memory_headroom: float = 0.08             # over-estimation discipline (paper §5.3)
+    # POST request granularity (paper: 1000 images per request).
+    request_size: int = 1024                  # samples per POST request
+    # Beyond-paper: compress split activations crossing the tier boundary.
+    compress_transfer: bool = False           # int8 per-tile quantization
+    # Beyond-paper: split candidates are block boundaries (always on).
+    collective_aware: bool = True

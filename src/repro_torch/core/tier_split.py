@@ -1,0 +1,120 @@
+"""TierPlan — the executable form of the paper's technique.
+
+Counterpart of ``repro/core/tier_split.py``. It combines the three
+decisions (split index, COS batch size, compression) into two functions:
+
+  * ``extract(frozen, batch)`` — feature extraction of blocks [0, split)
+    at *COS batch size* granularity (a loop over microbatches under
+    ``torch.no_grad`` — the decoupled batch of §5.5), emitting the
+    split-boundary activations, int8-compressed per microbatch when the
+    plan compresses (beyond-paper).
+  * ``tune_loss(trainable, acts, batch)`` — the training side: the
+    remaining blocks and the head, at the *training batch size*.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.config import HapiConfig, ModelConfig, ShapeConfig
+from repro_torch.core.batch_adapt import AdaptRequest, adapt_batches
+from repro_torch.core.profiler import LayerProfile, profile_lm
+from repro_torch.core.splitter import SplitDecision, choose_split
+from repro_torch.kernels import ops
+from repro_torch.models.module import dtype_of
+from repro_torch.models.transformer import Prefix, Suffix
+
+# What extract() emits: the activations, or int8 codes and their f32 scales.
+Acts = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+
+
+@dataclass(frozen=True)
+class TierPlan:
+    split: int
+    cos_batch: int            # samples per extraction microbatch
+    compress: bool
+    decision: SplitDecision
+
+
+def largest_divisor_leq(n: int, cap: int) -> int:
+    cap = max(1, min(cap, n))
+    for d in range(cap, 0, -1):
+        if n % d == 0:
+            return d
+    return 1
+
+
+def plan_tiers(
+    cfg: ModelConfig,
+    shape: ShapeConfig,
+    hapi: HapiConfig,
+    *,
+    profile: Optional[LayerProfile] = None,
+    local_batch: Optional[int] = None,
+) -> TierPlan:
+    """Profile -> Alg. 1 split -> Eq. 4 batch adaptation -> TierPlan."""
+    prof = profile or profile_lm(cfg, shape.seq_len, hapi.memory_headroom)
+    decision = choose_split(prof, hapi, shape.global_batch)
+    split = decision.split_index
+
+    b = local_batch or shape.global_batch
+    if split > 0:
+        req = AdaptRequest(
+            req_id=0,
+            mem_per_sample=prof.act_peak_bytes[split] * (1 + prof.headroom),
+            mem_model=prof.prefix_param_bytes[split],
+            b_max=min(b, hapi.cos_batch),
+        )
+        res = adapt_batches([req], hapi.cos_hbm_budget, b_min=hapi.cos_batch_min)
+        adapted = res.assignments[0].batch if res.assignments else hapi.cos_batch_min
+    else:
+        adapted = b
+    cos_batch = largest_divisor_leq(b, adapted)
+    return TierPlan(split=split, cos_batch=cos_batch,
+                    compress=hapi.compress_transfer, decision=decision)
+
+
+# ---------------------------------------------------------------------------
+# Executable halves
+# ---------------------------------------------------------------------------
+def _microbatches(batch: dict, mb: int):
+    lead = next(iter(batch.values())).shape[0]
+    if lead % mb:
+        raise ValueError(f"batch of {lead} does not split into microbatches of {mb}")
+    for i in range(0, lead, mb):
+        yield {k: v[i:i + mb] for k, v in batch.items()}
+
+
+def make_extract_fn(plan: TierPlan) -> Callable[[Prefix, dict], Acts]:
+    """Feature extraction at COS-batch granularity (frozen => no grads)."""
+
+    def extract(frozen: Prefix, batch: dict) -> Acts:
+        outs = []
+        with torch.no_grad():
+            for mb in _microbatches(batch, plan.cos_batch):
+                acts = frozen(mb)
+                outs.append(ops.quantize_int8(acts) if plan.compress else acts)
+        if plan.compress:
+            return (torch.cat([q for q, _ in outs]), torch.cat([s for _, s in outs]))
+        return torch.cat(outs)
+
+    return extract
+
+
+def make_tune_loss_fn(plan: TierPlan) -> Callable[[Suffix, Acts, dict], torch.Tensor]:
+    def tune_loss(trainable: Suffix, acts: Acts, batch: dict) -> torch.Tensor:
+        if plan.compress:
+            q, scales = acts
+            # Dequantize straight into the model's compute dtype.
+            acts = ops.dequantize_int8(q, scales, dtype=dtype_of(trainable.cfg.compute_dtype))
+        return trainable.loss(acts, batch)
+
+    return tune_loss
+
+
+def wire_bytes(acts: Acts) -> int:
+    """Actual bytes this activation payload puts on the bottleneck link."""
+    leaves = acts if isinstance(acts, tuple) else (acts,)
+    return sum(x.numel() * x.element_size() for x in leaves)

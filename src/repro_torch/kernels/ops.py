@@ -1,0 +1,83 @@
+"""Public kernel entry points of the port, dispatched by the tensor's device.
+
+Counterpart of ``repro/kernels/ops.py``. A tensor on the CPU takes the plain
+PyTorch version in ``ref``; a CUDA tensor takes the hand-written kernel, and
+a kernel that cannot take it raises. There is no backend toggle and no
+fallback from the kernel to the plain version.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import flash_attention as fk
+from repro_torch.kernels import int8_transfer as ik
+from repro_torch.kernels import ref
+
+# ---------------------------------------------------------------------------
+# The authoritative int8 wire-compression ratio (see repro/kernels/ops.py):
+# the splitter's prediction and the bytes that extract() emits agree on it.
+# ---------------------------------------------------------------------------
+WIRE_TILE = 128                 # quantization tile: one scale per 128 lanes
+SCALE_DTYPE = torch.float32     # per-tile scales ride the wire in f32
+
+
+def compression_ratio(dtype: torch.dtype = torch.bfloat16, tile: int = WIRE_TILE) -> float:
+    """Exact wire-byte ratio of int8(+per-tile scales) vs raw activations:
+    ``(itemsize_q + scale_bytes / tile) / itemsize_act``, 0.515625 for bf16
+    with the default 128-lane tile. ``tile`` should be the effective tile
+    after the kernels' ``gcd(d, tile)`` clamp."""
+    if tile <= 0:
+        raise ValueError(f"tile must be > 0, got {tile}")
+    return (torch.int8.itemsize + SCALE_DTYPE.itemsize / tile) / dtype.itemsize
+
+
+INT8_WIRE_RATIO = compression_ratio(torch.bfloat16, WIRE_TILE)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches of each kernel since the last reset."""
+    return {
+        "flash_attention": fk.launches,
+        "quantize_int8": ik.quantize_launches,
+        "dequantize_int8": ik.dequantize_launches,
+    }
+
+
+def reset_launch_counts() -> None:
+    fk.launches = 0
+    ik.quantize_launches = 0
+    ik.dequantize_launches = 0
+
+
+def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(b, s, h * n_rep, d)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """q (B, S, H, hd); k, v (B, S, Hkv, hd) with Hkv dividing H."""
+    if q.is_cuda:
+        return fk.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                       softcap=softcap)
+    n_rep = q.shape[2] // k.shape[2]
+    return ref.flash_attention(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
+                               causal=causal, window=window, softcap=softcap)
+
+
+def quantize_int8(x: torch.Tensor, tile: int = WIRE_TILE):
+    if x.is_cuda:
+        return ik.quantize_int8_cuda(x, tile=tile)
+    return ref.quantize_int8(x, tile=tile)
+
+
+def dequantize_int8(q: torch.Tensor, scales: torch.Tensor,
+                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    if q.is_cuda:
+        return ik.dequantize_int8_cuda(q, scales, dtype=dtype)
+    return ref.dequantize_int8(q, scales, dtype=dtype)
