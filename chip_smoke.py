@@ -3,25 +3,34 @@
 
     python3 chip_smoke.py
 
-Drives HAPI's forward pushdown path as a storage tier serving requests:
-builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-per source, all at once), holds each kernel against its plain PyTorch
-version on the card, checks that a full-width two-block mistral-nemo-12b
-gives the same loss on the card (kernels) and on the CPU (plain versions),
-then answers three requests with the full 40-block mistral-nemo-12b in bf16:
-the storage tier runs the 30-block prefix over COS-batch microbatches and
-int8-quantizes the boundary, the wire bytes are counted, and the compute
-tier dequantizes and evaluates the 10-block suffix's loss without
-gradients. Weights are random, from a seeded ``torch.Generator``.
+Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+per source, all at once) and holds each kernel against its plain PyTorch
+version on the card, then drives the port's two paths at full width:
 
-Exits non-zero on any failure, and without a GPU. Its last lines are the
-card's name and power limit, one JSON line with every kernel's numbers, and
+* HAPI's forward pushdown path as a storage tier serving requests: a
+  full-width two-block mistral-nemo-12b gives the same loss on the card
+  (kernels) and on the CPU (plain versions), then the full 40-block model in
+  bf16 answers three requests: the storage tier runs the 30-block prefix over
+  COS-batch microbatches and int8-quantizes the boundary, the wire bytes are
+  counted, and the compute tier dequantizes and evaluates the 10-block
+  suffix's loss without gradients.
+* Serving (``repro_torch.launch.serve.serve``): two-block mistral-nemo-12b
+  and two-layer mamba2-1.3b prefill and decode steps agree between the card
+  and the CPU, then the full mistral-nemo-12b (40 blocks) and mamba2-1.3b
+  (48 layers) each prefill 4 prompts of 512 tokens, refill the cache by
+  teacher forcing and decode 32 tokens greedily, with exact launch counts
+  and the prefill's logits held to the last teacher-forced step's.
+
+Weights are random, from seeded ``torch.Generator``s. Exits non-zero on any
+failure, and without a GPU. Its last lines are the card's name and power
+limit, one JSON line with every kernel's numbers, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import math
 import platform
@@ -41,15 +50,33 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.tier_split import (  # noqa: E402
     make_extract_fn, make_tune_loss_fn, plan_tiers, wire_bytes)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.int8_transfer import (  # noqa: E402
     dequantize_int8_cuda, quantize_int8_cuda)
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.train.steps import build_decode_step, build_prefill_step  # noqa: E402
 
 ARCH = "mistral-nemo-12b"
 BF16_TOL = 2e-2          # tests/test_kernels.py's bf16 tolerance
 F32_TOL = 2e-5           # tests/test_kernels.py's f32 tolerance
 LOSS_TOL = 2e-2          # card vs CPU loss of the 2-block model, bf16 end to end
+DECODE_BF16_TOL = 3e-2   # tests/test_kernels.py's bf16 decode tolerance
+SSD_TOL = 2e-3           # tests/test_kernels.py's SSD tolerance
+# Card vs CPU, two blocks in bf16 on both: relative L2 error of the logits and
+# of the SSM states. Both devices round to bf16 at the same places, so only
+# summation order and the kernels' algorithms differ.
+SERVE_AGREE_TOL = 2e-2
+# The prefill's last logits against the last teacher-forced step's, at full
+# depth in bf16 (relative L2 over the real vocabulary). The two paths round
+# differently: flash vs decode kernel (dense), and for mamba2 the prefill
+# rounds each layer's conv output to bf16 where decode keeps it in f32, as the
+# JAX model does (about 7% after 48 layers at smoke width on the CPU). A wrong
+# position, mask or state decorrelates the logits: relative error near 1.4.
+CONSISTENCY_TOL = {"mistral-nemo-12b": 0.1, "mamba2-1.3b": 0.25}
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 512, 32
 N_REQUESTS = 3
 WIRE_BYTES = 83_886_080 + 2_621_440   # int8 codes + f32 scales of (4, 4096, 5120)
 KERNELS = {
@@ -59,6 +86,17 @@ KERNELS = {
                       "src/repro/kernels/int8_transfer.py:52"),
     "dequantize_int8": ("src/repro_torch/csrc/int8_transfer.cu",
                         "src/repro/kernels/int8_transfer.py:86"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:101"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:106"),
+}
+# Launches of one serve() call at SERVE_BATCH x SERVE_PROMPT + SERVE_TOKENS:
+# a decode-attention launch per attention sublayer per decode step, a flash
+# launch per attention sublayer of the prefill, an SSD launch per mamba layer.
+SERVE_LAUNCHES = {
+    "mistral-nemo-12b": {"flash_attention": 40,
+                         "decode_attention": 40 * (SERVE_PROMPT + SERVE_TOKENS)},
+    "mamba2-1.3b": {"ssd_scan": 48},
 }
 
 
@@ -72,7 +110,9 @@ def check(ok: bool, what: str) -> None:
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of one call, from CUDA events around ``iters`` calls."""
+    """Mean time of one eager call, from CUDA events around ``iters`` calls:
+    the device time, or the host's time to issue the call where that is
+    longer."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -83,6 +123,28 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, replays: int = 3) -> float:
+    """Mean device time of one call: ``iters`` calls captured in one CUDA
+    graph, timed with CUDA events over ``replays`` replays, so the host's
+    cost of issuing a call does not count."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def bound(bytes_moved: float, ops_done: float, peak_flops: float):
@@ -104,6 +166,17 @@ def live_pairs(s: int, causal: bool, window) -> int:
 def randn(shape, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return torch.randn(shape, generator=g, device="cuda", dtype=torch.float32).to(dtype)
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """||got - want|| / ||want|| in f64 on the CPU."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+def free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -146,7 +219,7 @@ def check_int8() -> dict:
     n = x.numel()
     qb, qby = bound(n * (2 + 1) + s.numel() * 4, 5 * n, HW.peak_flops_f32)
     quant = dict(max_abs_err=float((q.int() - ref.quantize_int8(x)[0].int()).abs().max()),
-                 ms=time_ms(lambda: quantize_int8_cuda(x), 50),
+                 ms=device_ms(lambda: quantize_int8_cuda(x), 20),
                  plain_ms=time_ms(lambda: ref.quantize_int8(x), 10),
                  bound_ms=qb, bound_by=qby, library_ms=None)
     q4 = torch.cat([q, q])
@@ -155,7 +228,7 @@ def check_int8() -> dict:
     db, dby = bound(n4 * (1 + 2) + s4.numel() * 4, n4, HW.peak_flops_f32)
     got, exp = dequantize_int8_cuda(q4, s4), ref.dequantize_int8(q4, s4)
     dequant = dict(max_abs_err=float((got.float() - exp.float()).abs().max()),
-                   ms=time_ms(lambda: dequantize_int8_cuda(q4, s4), 50),
+                   ms=device_ms(lambda: dequantize_int8_cuda(q4, s4), 20),
                    plain_ms=time_ms(lambda: ref.dequantize_int8(q4, s4), 10),
                    bound_ms=db, bound_by=dby, library_ms=None)
     for name, r in (("quantize_int8 (8192 x 5120 bf16)", quant),
@@ -200,10 +273,10 @@ def check_flash() -> dict:
             sdpa = torch.nn.functional.scaled_dot_product_attention
             main = dict(
                 max_abs_err=err,
-                ms=time_ms(lambda: flash_attention_cuda(q, k, v, causal=causal), 10),
+                ms=device_ms(lambda: flash_attention_cuda(q, k, v, causal=causal), 10),
                 plain_ms=time_ms(lambda: ref.flash_attention(q, kr, vr, causal=causal), 3, 1),
                 bound_ms=fb, bound_by=fby,
-                library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
+                library_ms=device_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
                                    10))
             log(f"flash_attention (2 x 4096, 32/8 heads, hd 128, causal, bf16): "
                 f"{main['ms']:.4f} ms, plain {main['plain_ms']:.4f} ms, "
@@ -212,6 +285,129 @@ def check_flash() -> dict:
         del q, k, v, out, exp, kr, vr
         torch.cuda.empty_cache()
     return {"flash_attention": main}
+
+
+DECODE_CASES = [
+    # b, s, hq, hkv, hd, length, window, softcap, dtype
+    (2, 1024, 8, 2, 64, 700, None, None, torch.float32),     # tests/test_kernels.py
+    (2, 768, 16, 8, 64, 100, None, None, torch.bfloat16),
+    (1, 300, 8, 8, 64, 300, None, None, torch.float32),
+    (3, 64, 4, 2, 128, 1, None, None, torch.bfloat16),       # one live key
+    (2, 200, 8, 1, 256, 77, None, 50.0, torch.float32),      # MQA, hd 256, softcap
+    (1, 4096, 16, 8, 256, 3000, 1024, 50.0, torch.bfloat16),  # gemma2 local layer
+    (2, 100, 4, 4, 64, 90, 0, None, torch.float32),          # window 0
+    (4, 544, 32, 8, 128, 544, None, None, torch.float32),
+]
+DECODE_SHAPES = {"path": (4, 544, 544), "long": (4, 32768, 32768)}   # b, cache, length
+
+
+def decode_bound(b, hq, hkv, hd, length, itemsize):
+    """Each live K and V row read once, q read and the output written once;
+    4 hd FLOP per (query head, key), on bf16 (or f32) operands."""
+    nbytes = (2 * b * length * hkv * hd + 2 * b * hq * hd) * itemsize
+    return bound(nbytes, 4 * hd * b * hq * length, HW.peak_flops_bf16)
+
+
+def check_decode() -> dict:
+    for b, s, hq, hkv, hd, length, window, cap, dt in DECODE_CASES:
+        q = randn((b, hq, hd), dt, seed=4)
+        k = randn((b, s, hkv, hd), dt, seed=5)
+        v = randn((b, s, hkv, hd), dt, seed=6)
+        out = decode_attention_cuda(q, k, v, length, window=window, softcap=cap)
+        exp = ref.decode_attention(q, k, v, length, window=window, softcap=cap)
+        tol = F32_TOL if dt == torch.float32 else DECODE_BF16_TOL
+        err = float((out.float() - exp.float()).abs().max())
+        torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
+        log(f"decode B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} length={length} window={window} "
+            f"softcap={cap} {str(dt)[6:]}: max abs err {err:.3g} (tol {tol:g})")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for name, (b, s, length) in DECODE_SHAPES.items():
+        q = randn((b, 32, 128), torch.bfloat16, seed=7)
+        k = randn((b, s, 8, 128), torch.bfloat16, seed=8)
+        v = randn((b, s, 8, 128), torch.bfloat16, seed=9)
+        out = decode_attention_cuda(q, k, v, length)
+        exp = ref.decode_attention(q, k, v, length)
+        err = float((out.float() - exp.float()).abs().max())
+        check(err <= DECODE_BF16_TOL, f"decode at the {name} shape: max abs err {err}")
+        qs, ks, vs = q[:, :, None], k[:, :length].transpose(1, 2), v[:, :length].transpose(1, 2)
+        db, dby = decode_bound(b, 32, 8, 128, length, 2)
+        n = 200 if s < 4096 else 50
+        rows[name] = dict(
+            max_abs_err=err,
+            ms=device_ms(lambda: decode_attention_cuda(q, k, v, length), n),
+            plain_ms=time_ms(lambda: ref.decode_attention(q, k, v, length), 10),
+            bound_ms=db, bound_by=dby,
+            library_ms=device_ms(lambda: sdpa(qs, ks, vs, enable_gqa=True), n))
+        r = rows[name]
+        eager = time_ms(lambda: decode_attention_cuda(q, k, v, length), n)
+        eager_lib = time_ms(lambda: sdpa(qs, ks, vs, enable_gqa=True), n)
+        log(f"decode_attention at the {name} shape (B={b}, 32/8 heads, hd 128, cache {s}, "
+            f"length {length}, bf16): {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({dby}), scaled_dot_product_attention "
+            f"{r['library_ms']:.4f} ms; an eager call {eager:.4f} ms "
+            f"(scaled_dot_product_attention {eager_lib:.4f} ms); max abs err {err:.3g}")
+        del q, k, v, qs, ks, vs, out, exp
+        free()
+    return {"decode_attention": rows["path"]}
+
+
+SSD_CASES = [
+    # b, s, h, p, n, chunk, dtype
+    (2, 512, 8, 64, 128, 128, torch.float32),    # tests/test_kernels.py
+    (1, 256, 4, 32, 64, 64, torch.float32),
+    (1, 256, 4, 32, 16, 128, torch.float32),
+    (2, 128, 8, 64, 128, 128, torch.float32),
+    (2, 48, 3, 16, 16, 16, torch.float32),       # the smoke model's widths
+    (4, 512, 64, 64, 128, 256, torch.bfloat16),  # the path's shape
+]
+
+
+def ssd_inputs(b, s, h, p, n, dt, seed=10):
+    x = randn((b, s, h, p), dt, seed)
+    dts = torch.nn.functional.softplus(randn((b, s, h), torch.float32, seed + 1))
+    a = -torch.exp(randn((h,), torch.float32, seed + 2) * 0.3)
+    return x, dts * a, dts, randn((b, s, n), dt, seed + 3) * 0.3, \
+        randn((b, s, n), dt, seed + 4) * 0.3
+
+
+def ssd_bound(b, s, h, p, n, q, itemsize):
+    """Bytes: x, B, C in their type, dtA and dt in f32 read once; y and the
+    state written once in f32. Operations: the least the chunked form needs,
+    with the within-chunk products over the lower triangle only: per chunk
+    C.B^T once per batch row, and per head the masked (C.B^T * L).(x dt),
+    the carried state's C.state and the state update B^T.(x dt), all f32."""
+    nbytes = (b * s * h * p + 2 * b * s * n) * itemsize + 2 * b * s * h * 4 \
+        + (b * s * h * p + b * h * n * p) * 4
+    tri = q * (q + 1) // 2
+    chunks = s // q
+    flops = b * chunks * (2 * tri * n + h * (2 * tri * p + 4 * q * n * p))
+    return bound(nbytes, flops, HW.peak_flops_f32), flops
+
+
+def check_ssd() -> dict:
+    row = None
+    for b, s, h, p, n, chunk, dt in SSD_CASES:
+        args = ssd_inputs(b, s, h, p, n, dt)
+        y, st = ssd_scan_cuda(*args, chunk=chunk)
+        ye, ste = ref.ssd_chunked(*args, chunk=chunk)
+        err = max(float((y - ye).abs().max()), float((st - ste).abs().max()))
+        torch.testing.assert_close(y, ye, atol=SSD_TOL, rtol=SSD_TOL)
+        torch.testing.assert_close(st, ste, atol=SSD_TOL, rtol=SSD_TOL)
+        log(f"ssd B={b} S={s} H={h} P={p} N={n} chunk={chunk} {str(dt)[6:]}: "
+            f"max abs err {err:.3g} (tol {SSD_TOL:g})")
+        if (b, s, h, p, n, chunk) == (4, 512, 64, 64, 128, 256):
+            (sb, sby), flops = ssd_bound(b, s, h, p, n, chunk, 2)
+            row = dict(max_abs_err=err,
+                       ms=device_ms(lambda: ssd_scan_cuda(*args, chunk=chunk), 20),
+                       plain_ms=time_ms(lambda: ref.ssd_chunked(*args, chunk=chunk), 5, 1),
+                       bound_ms=sb, bound_by=sby, library_ms=None)
+            log(f"ssd_scan (x 4 x 512 x 64 x 64 bf16, N 128, chunk 256): {row['ms']:.4f} ms, "
+                f"plain {row['plain_ms']:.4f} ms, bound {sb:.4f} ms ({sby}, "
+                f"{flops / 1e9:.3f} GFLOP lower-triangle f32)")
+        del args, y, st, ye, ste
+        free()
+    return {"ssd_scan": row}
 
 
 # ---------------------------------------------------------------------------
@@ -248,8 +444,58 @@ def check_full_width() -> None:
     torch.cuda.empty_cache()
 
 
+def serving_outputs(lm, toks: torch.Tensor, prompt: int, steps: int) -> dict:
+    """The prefill's last logits and per-layer SSM states, then ``steps``
+    teacher-forced decode steps after the prompt (the prefill's K/V copied
+    into a cache of prompt + steps positions; mamba decodes from the prefill's
+    own cache)."""
+    prefill, step = build_prefill_step(lm), build_decode_step(lm)
+    logits, caches = prefill({"tokens": toks[:, :prompt]})
+    out = {"prefill": logits,
+           "states": [c["sub0"].ssm for c in caches if hasattr(c["sub0"], "ssm")]}
+    if lm.cfg.family == "dense":
+        cache = lm.init_cache(toks.shape[0], prompt + steps)
+        for full, part in zip(cache, caches):
+            for name, kv in full.items():
+                kv.k[:, :prompt] = part[name].k
+                kv.v[:, :prompt] = part[name].v
+    else:
+        cache = caches
+    for i in range(steps):
+        out[f"step {i}"], cache = step(cache, toks[:, prompt + i:prompt + i + 1], prompt + i)
+    return out
+
+
+def check_full_width_serving() -> None:
+    for arch, prompt in (("mistral-nemo-12b", 512), ("mamba2-1.3b", 512)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+        lm_gpu = build_model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(2))
+        lm_cpu = copy.deepcopy(lm_gpu).cpu()
+        toks = np.random.default_rng(8).integers(0, cfg.vocab_size, (2, prompt + 4))
+        outs = {}
+        for dev, lm in (("cuda", lm_gpu), ("cpu", lm_cpu)):
+            t0 = time.perf_counter()
+            outs[dev] = serving_outputs(lm, torch.from_numpy(toks).to(dev), prompt, 4)
+            log(f"full width serving, {arch} 2 layers, prompt 2 x {prompt} + 4 steps on {dev} "
+                f"({time.perf_counter() - t0:.1f} s)")
+        v = cfg.vocab_size
+        for name, got in outs["cuda"].items():
+            pairs = zip(got, outs["cpu"][name]) if name == "states" else \
+                [(got[..., :v], outs["cpu"][name][..., :v])]
+            for i, (a, b) in enumerate(pairs):
+                check(bool(torch.isfinite(a).all()), f"{arch} {name} not finite on the card")
+                err = rel_err(a, b)
+                log(f"full width serving agreement, {arch} {name}"
+                    f"{f' layer {i}' if name == 'states' else ''}: relative L2 card vs cpu "
+                    f"{err:.3g} (tol {SERVE_AGREE_TOL:g}), max abs "
+                    f"{float((a.double().cpu() - b.double()).abs().max()):.3g}")
+                check(err <= SERVE_AGREE_TOL, f"{arch} {name}: card and CPU disagree")
+        del lm_gpu, lm_cpu, outs
+        free()
+
+
 # ---------------------------------------------------------------------------
-# Phase 5: the slice
+# Phase 5: the slices
 # ---------------------------------------------------------------------------
 def serve_slice() -> dict:
     cfg = get_config(ARCH)
@@ -272,6 +518,7 @@ def serve_slice() -> dict:
                    "dequantize_int8": 1}
     check(per_request == {"flash_attention": 70, "quantize_int8": 2, "dequantize_int8": 1},
           f"unexpected launches per request {per_request}")
+    per_request = {k: per_request.get(k, 0) for k in KERNELS}
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -302,6 +549,48 @@ def serve_slice() -> dict:
     return ops.launch_counts()
 
 
+def serve_models() -> dict:
+    """serve() at full width and depth for each served model; returns the
+    launches of each kernel summed over the calls."""
+    total = dict.fromkeys(KERNELS, 0)
+    for arch, want in SERVE_LAUNCHES.items():
+        free()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = serve(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, new_tokens=SERVE_TOKENS,
+                    smoke=False, seed=0)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        cfg = get_config(arch)
+        v = cfg.vocab_size
+        pre, tf = out["prefill_logits"][..., :v], out["teacher_logits"][..., :v]
+        err = rel_err(tf, pre)
+        agree = float((pre.argmax(-1) == tf.argmax(-1)).float().mean())
+        log(f"serve {arch} (full, {cfg.n_blocks} blocks, bf16, batch {SERVE_BATCH}, prompt "
+            f"{SERVE_PROMPT}, {SERVE_TOKENS} new tokens): prefill {out['prefill_ms']:.1f} ms, "
+            f"teacher-forced refill {out['teacher_ms']:.1f} ms "
+            f"({out['teacher_ms'] / SERVE_PROMPT:.2f} ms/step), decode "
+            f"{out['tok_per_s']:.1f} tok/s, peak device memory "
+            f"{torch.cuda.max_memory_allocated()} bytes, wall {wall:.1f} s, launches {counts}")
+        log(f"serve {arch}: prefill vs last teacher-forced logits relative L2 {err:.3g} "
+            f"(tol {CONSISTENCY_TOL[arch]:g}), max abs "
+            f"{float((pre - tf).abs().max()):.3g}, argmax agreement {agree:.2f}; "
+            f"tokens {out['tokens'][:, :8].tolist()}")
+        check(counts == {k: want.get(k, 0) for k in counts},
+              f"{arch}: launches {counts}, expected {want}")
+        check(bool(torch.isfinite(pre).all() and torch.isfinite(tf).all()),
+              f"{arch}: logits not finite")
+        check(out["tokens"].shape == (SERVE_BATCH, SERVE_TOKENS + 1), f"{arch}: token shape")
+        check(err <= CONSISTENCY_TOL[arch], f"{arch}: prefill and teacher-forced logits differ")
+        for k in total:
+            total[k] += counts[k]
+        del out, pre, tf
+    free()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -309,11 +598,16 @@ def main() -> int:
         return 1
     smi = environment()
     log(f"build: {_build.build():.1f} s ({', '.join(_build.SOURCES)})")
-    kernels = {**check_flash(), **check_int8()}
+    kernels = {**check_flash(), **check_int8(), **check_decode(), **check_ssd()}
     check_full_width()
-    launches = serve_slice()
+    check_full_width_serving()
+    pushdown = serve_slice()
+    free()
+    served = serve_models()
+    launches = {name: pushdown[name] + served[name] for name in KERNELS}
+    log(f"launches: pushdown {pushdown}, serving {served}")
     for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
+        check(n > 0, f"{name} was not launched on the main paths")
     line = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[name], **kernels[name]}
             for name, (src, rep) in KERNELS.items()]

@@ -26,7 +26,7 @@ from typing import Dict, Iterable, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("int8_transfer", "flash_attention")
+SOURCES = ("int8_transfer", "flash_attention", "decode_attention", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -14,6 +14,7 @@ requires grad rather than hide the kernel behind a differentiable fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -32,6 +33,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 
 
+@functools.lru_cache(maxsize=None)
 def softmax_scale(hd: int) -> float:
     """1 / sqrt(hd) computed in f32, as the reference computes it."""
     return float(1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32)))

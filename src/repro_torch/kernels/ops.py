@@ -11,9 +11,11 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import decode_attention as dk
 from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import int8_transfer as ik
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as sk
 
 # ---------------------------------------------------------------------------
 # The authoritative int8 wire-compression ratio (see repro/kernels/ops.py):
@@ -42,6 +44,8 @@ def launch_counts() -> Dict[str, int]:
         "flash_attention": fk.launches,
         "quantize_int8": ik.quantize_launches,
         "dequantize_int8": ik.dequantize_launches,
+        "decode_attention": dk.launches,
+        "ssd_scan": sk.launches,
     }
 
 
@@ -49,6 +53,8 @@ def reset_launch_counts() -> None:
     fk.launches = 0
     ik.quantize_launches = 0
     ik.dequantize_launches = 0
+    dk.launches = 0
+    sk.launches = 0
 
 
 def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -81,3 +87,22 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor,
     if q.is_cuda:
         return ik.dequantize_int8_cuda(q, scales, dtype=dtype)
     return ref.dequantize_int8(q, scales, dtype=dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     length: int, *, window: Optional[int] = None,
+                     softcap: Optional[float] = None) -> torch.Tensor:
+    """q (B, Hq, hd) against caches (B, S, Hkv, hd) whose first ``length``
+    positions are live; ``length`` is a host int."""
+    if q.is_cuda:
+        return dk.decode_attention_cuda(q, k_cache, v_cache, length, window=window,
+                                        softcap=softcap)
+    return ref.decode_attention(q, k_cache, v_cache, length, window=window, softcap=softcap)
+
+
+def ssd_scan(x: torch.Tensor, dtA: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
+             C_: torch.Tensor, *, chunk: int = 256):
+    """Mamba2 SSD from a zero state: (y f32 (B, S, H, P), state f32 (B, H, N, P))."""
+    if x.is_cuda:
+        return sk.ssd_scan_cuda(x, dtA, dt, B_, C_, chunk=chunk)
+    return ref.ssd_chunked(x, dtA, dt, B_, C_, chunk=chunk)

@@ -1,13 +1,15 @@
 """Plain PyTorch versions of the port's kernels.
 
-Counterpart of ``repro/kernels/ref.py`` for the kernels of the forward
-pushdown path. ``ops`` takes them for tensors on the CPU, and the card's
-checks hold each CUDA kernel against them on the same inputs.
+Counterpart of ``repro/kernels/ref.py``. ``ops`` takes them for tensors on
+the CPU, and the card's checks hold each CUDA kernel against them on the
+same inputs. The plain version of the SSD kernel is ``ssd_chunked``, the
+chunked form of ``repro/models/ssm.py`` (which ``models.ssm`` exports under
+that name); ``ssd_reference`` is the recurrence both are held to.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,6 +39,95 @@ def flash_attention(
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
     return out.to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,        # (B, Hq, hd) — one token
+    k_cache: torch.Tensor,  # (B, S, Hkv, hd)
+    v_cache: torch.Tensor,
+    length: int,            # valid cache length (positions < length)
+    *,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """GQA decode of one query token. ``window`` admits only
+    ``kpos >= length - 1 - window``, the mask of ``attention_decode``'s
+    sliding-window layers. The result has the cache's dtype."""
+    b, hq, hd = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, hd)
+    scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32, device=q.device))
+    scores = torch.einsum("bhrd,bshd->bhrs", qg.float(), k_cache.float()) * scale
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    kpos = torch.arange(s, device=q.device)
+    valid = kpos < length
+    if window is not None:
+        valid &= kpos >= length - 1 - window
+    scores = scores.masked_fill(~valid, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bhrs,bshd->bhrd", probs.float(), v_cache.float())
+    return out.to(v_cache.dtype).reshape(b, hq, hd)
+
+
+def ssd_reference(
+    x: torch.Tensor,     # (B, S, H, P)
+    dtA: torch.Tensor,   # (B, S, H) log decay
+    dt: torch.Tensor,    # (B, S, H) input scale
+    B_: torch.Tensor,    # (B, S, N)
+    C_: torch.Tensor,    # (B, S, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD as its sequential recurrence from a zero state, one step at
+    a time: the ground truth the chunked forms are held to. Returns
+    (y f32, state f32)."""
+    b, s, h, p = x.shape
+    n = B_.shape[-1]
+    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    x, dtA, dt, B_, C_ = (t.float() for t in (x, dtA, dt, B_, C_))
+    ys = []
+    for t in range(s):
+        upd = torch.einsum("bn,bhp->bhnp", B_[:, t], x[:, t] * dt[:, t, :, None])
+        state = state * torch.exp(dtA[:, t])[:, :, None, None] + upd
+        ys.append(torch.einsum("bn,bhnp->bhp", C_[:, t], state))
+    return torch.stack(ys, dim=1), state
+
+
+def ssd_chunked(
+    x: torch.Tensor,     # (B, S, H, P)
+    dtA: torch.Tensor,   # (B, S, H) log decay (= dt * A, A < 0)
+    dt: torch.Tensor,    # (B, S, H) input scale
+    B_: torch.Tensor,    # (B, S, N)
+    C_: torch.Tensor,    # (B, S, N)
+    chunk: int = 256,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD in its chunked matrix form, from a zero state, one chunk
+    at a time: the within-chunk term ``(C.B^T * L).(x dt)`` with
+    ``L[i, j] = exp(cum_i - cum_j)`` for ``i >= j``, the carried-state term
+    and the state update. Returns (y f32 (B, S, H, P), state f32 (B, H, N, P))."""
+    b, s, h, p = x.shape
+    n = B_.shape[-1]
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"sequence {s} is not a multiple of the chunk {q}")
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    ys = []
+    for s0 in range(0, s, q):
+        xk = x[:, s0:s0 + q].float()
+        ak, dk = dtA[:, s0:s0 + q].float(), dt[:, s0:s0 + q].float()
+        bk, ck = B_[:, s0:s0 + q].float(), C_[:, s0:s0 + q].float()
+        cum = torch.cumsum(ak, dim=1)                                    # (B, Q, H)
+        decay = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])       # (B, Q, Q, H)
+        decay = torch.where(tri[None, :, :, None], decay, torch.zeros((), device=x.device))
+        scores = torch.einsum("bqn,bkn->bqk", ck, bk)[..., None] * decay
+        xs = xk * dk[..., None]                                          # dt-scaled inputs
+        y_diag = torch.einsum("bqkh,bkhp->bqhp", scores, xs)
+        y_off = torch.einsum("bqn,bhnp,bqh->bqhp", ck, state, torch.exp(cum))
+        to_end = torch.exp(cum[:, -1:, :] - cum)                         # (B, Q, H)
+        s_chunk = torch.einsum("bqn,bqh,bqhp->bhnp", bk, to_end, xs)
+        state = state * torch.exp(cum[:, -1, :])[:, :, None, None] + s_chunk
+        ys.append(y_diag + y_off)
+    return torch.cat(ys, dim=1), state
 
 
 def quantize_int8(x: torch.Tensor, tile: int = 128):

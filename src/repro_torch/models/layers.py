@@ -1,18 +1,19 @@
-"""Layers of the dense LM family.
+"""Layers of the dense LM family, and the mamba frontend's causal conv.
 
 Counterpart of ``repro/models/layers.py``. Each layer is an ``nn.Module``
 whose parameters keep the JAX package's names and shapes (``wq`` is
 ``(d_model, n_heads, head_dim)``, ``wo`` is ``(n_heads, head_dim, d_model)``),
 so converted weights load as they are, and a plain function that applies it.
 Casts sit where the JAX layers put them. Attention goes to
-``ops.flash_attention``: the CUDA kernel for tensors on the card, the plain
-version on the CPU; K and V are passed with their ``n_kv_heads`` heads and
-are never repeated on the card. Projections stay ``torch.matmul``, as the
-JAX package left them to XLA.
+``ops.flash_attention`` and single-token decode to ``ops.decode_attention``:
+the CUDA kernels for tensors on the card, the plain versions on the CPU; K
+and V keep their ``n_kv_heads`` heads, in the cache too, and are never
+repeated on the card. Projections stay ``torch.matmul``, as the JAX package
+left them to XLA.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -105,6 +106,16 @@ def _softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
 
 
+def attend(p: Attention, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           cfg: ModelConfig, *, window: Optional[int] = None,
+           causal: bool = True) -> torch.Tensor:
+    """Attention of projected q (B, S, H, hd) over k, v (B, S, Hkv, hd), then
+    the output projection."""
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=cfg.attn_softcap)
+    return torch.einsum("bshd,hdm->bsm", out, p.wo)
+
+
 def attention_apply(
     p: Attention,
     x: torch.Tensor,
@@ -119,9 +130,36 @@ def attention_apply(
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = ops.flash_attention(q, k, v, causal=causal, window=window,
-                              softcap=cfg.attn_softcap)
-    return torch.einsum("bshd,hdm->bsm", out, p.wo)
+    return attend(p, q, k, v, cfg, window=window, causal=causal)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, Smax, Hkv, hd)
+    v: torch.Tensor
+
+
+def attention_decode(
+    p: Attention,
+    x: torch.Tensor,       # (B, 1, D)
+    cache: KVCache,
+    pos: int,              # current position, a host int
+    cfg: ModelConfig,
+    *,
+    window: Optional[int] = None,
+):
+    """Single-token decode against a filled KV cache. The new K and V are
+    written into ``cache`` at ``pos`` in place (the JAX layer returns an
+    updated copy), and the same cache is returned. Keys ``<= pos`` are live,
+    and with ``window`` only those ``>= pos - window``."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions)
+    cache.k[:, pos] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[:, pos] = v_new[:, 0].to(cache.v.dtype)
+    out = ops.decode_attention(q[:, 0], cache.k, cache.v, pos + 1, window=window,
+                               softcap=cfg.attn_softcap)
+    y = torch.einsum("bhd,hdm->bm", out.to(p.wo.dtype), p.wo)
+    return y[:, None], cache
 
 
 # ---------------------------------------------------------------------------
@@ -141,3 +179,16 @@ def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
     g = torch.matmul(x, p.w_gate)
     u = torch.matmul(x, p.w_up)
     return torch.matmul(F.silu(g) * u, p.w_down)
+
+
+# ---------------------------------------------------------------------------
+# Depthwise causal conv (mamba frontend)
+# ---------------------------------------------------------------------------
+def causal_conv1d(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv. w: (W, C), x: (B, S, C); summed in f32."""
+    width, s = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, width - 1, 0))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(width):
+        out = out + xp[:, i:i + s].to(torch.float32) * w[i]
+    return out.to(x.dtype)

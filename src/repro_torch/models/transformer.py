@@ -1,9 +1,9 @@
-"""Decoder LM of the dense family, split at block boundaries.
+"""Decoder LM of the dense and SSM families, split at block boundaries.
 
 Counterpart of ``repro/models/transformer.py``:
   * The layer stack is a ``nn.ModuleList`` of blocks whose boundaries are
-    the Hapi split candidates. dense: block == one layer; gemma2: block ==
-    (local, global) pair.
+    the Hapi split candidates. dense and ssm: block == one layer; gemma2:
+    block == (local, global) pair.
   * ``LM.split_params(split)`` gives the two halves of the paper's tier
     split as modules that share the LM's parameters: ``Prefix`` runs the
     embedding and blocks [0, split) (``forward_prefix``), ``Suffix`` runs
@@ -11,20 +11,27 @@ Counterpart of ``repro/models/transformer.py``:
     ``merge_params`` joins them back into an ``LM``.
   * Logits are f32 and the cross entropy is taken in f32, as in the JAX
     package.
+  * Serving: ``LM.prefill`` runs the prompt and returns the last position's
+    logits with the decode cache, ``LM.decode_step`` runs one token at a
+    host-int position against it, ``LM.init_cache`` makes an empty one. The
+    cache is a list with one dict per block (``{"sub0": KVCache, ...}``), not
+    a stack over a block axis; K and V are cached in bf16, unrepeated, and
+    written in place by ``decode_step``.
 
-The moe, ssm, hybrid, vlm and encdec families are not ported yet and raise
+The moe, hybrid, vlm and encdec families are not ported yet and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.module import dtype_of, embed_init
 
 
@@ -61,25 +68,80 @@ def block_plan(cfg: ModelConfig) -> List[SubLayer]:
 # Sublayers and blocks
 # ---------------------------------------------------------------------------
 class Sublayer(nn.Module):
-    """Pre-norm attention (global or sliding-window) then pre-norm SwiGLU MLP."""
+    """Pre-norm mixer (global or sliding-window attention, or mamba2), then a
+    pre-norm SwiGLU MLP where the plan has one."""
 
     def __init__(self, cfg: ModelConfig, sub: SubLayer, *, device,
                  generator: torch.Generator):
         super().__init__()
-        if sub.mixer not in ("attn", "attn_local") or sub.ffn != "mlp":
+        if sub.mixer not in ("attn", "attn_local", "mamba") or sub.ffn not in ("mlp", "none"):
             raise NotImplementedError(f"sublayer {sub} is not ported yet")
         init = dict(dtype=dtype_of(cfg.param_dtype), device=device)
         self.cfg = cfg
+        self.is_mamba = sub.mixer == "mamba"
+        self.has_mlp = sub.ffn == "mlp"
         self.window = cfg.sliding_window if sub.mixer == "attn_local" else None
         self.ln_mixer = L.RMSNorm(cfg.d_model, cfg.norm_eps, **init)
-        self.attn = L.Attention(cfg, device=device, generator=generator)
-        self.ln_ffn = L.RMSNorm(cfg.d_model, cfg.norm_eps, **init)
-        self.mlp = L.MLP(cfg, device=device, generator=generator)
+        if self.is_mamba:
+            self.mamba = S.Mamba(cfg, device=device, generator=generator)
+        else:
+            self.attn = L.Attention(cfg, device=device, generator=generator)
+        if self.has_mlp:
+            self.ln_ffn = L.RMSNorm(cfg.d_model, cfg.norm_eps, **init)
+            self.mlp = L.MLP(cfg, device=device, generator=generator)
+
+    def _ffn(self, h: torch.Tensor) -> torch.Tensor:
+        if not self.has_mlp:
+            return h
+        return h + L.mlp_apply(self.mlp, self.ln_ffn(h))
 
     def forward(self, h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        h = h + L.attention_apply(self.attn, self.ln_mixer(h), self.cfg,
-                                  window=self.window, positions=positions)
-        return h + L.mlp_apply(self.mlp, self.ln_ffn(h))
+        x = self.ln_mixer(h)
+        if self.is_mamba:
+            y = S.ssm_apply(self.mamba, x, self.cfg)
+        else:
+            y = L.attention_apply(self.attn, x, self.cfg, window=self.window,
+                                  positions=positions)
+        return self._ffn(h + y)
+
+    def prefill(self, h: torch.Tensor, positions: torch.Tensor):
+        """Like forward, but also returns this sublayer's decode cache."""
+        x = self.ln_mixer(h)
+        if self.is_mamba:
+            y, cache = S.ssm_prefill(self.mamba, x, self.cfg)
+        else:
+            y, cache = _attention_prefill(self.attn, x, self.cfg, window=self.window,
+                                          positions=positions)
+        return self._ffn(h + y), cache
+
+    def decode(self, h: torch.Tensor, cache, pos: int):
+        x = self.ln_mixer(h)
+        if self.is_mamba:
+            y, cache = S.ssm_decode(self.mamba, x, cache, self.cfg)
+        else:
+            y, cache = L.attention_decode(self.attn, x, cache, pos, self.cfg,
+                                          window=self.window)
+        return self._ffn(h + y), cache
+
+    def init_cache(self, batch: int, smax: int):
+        device = self.ln_mixer.scale.device
+        if self.is_mamba:
+            return S.ssm_init_cache(self.cfg, batch, device=device)
+        shape = (batch, smax, self.cfg.n_kv_heads, self.cfg.hdim)
+        return L.KVCache(k=torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                         v=torch.zeros(shape, dtype=torch.bfloat16, device=device))
+
+
+def _attention_prefill(p: L.Attention, x: torch.Tensor, cfg: ModelConfig, *,
+                       window: Optional[int], positions: torch.Tensor):
+    """Attention that also emits the (unrepeated) KV cache in bf16: the K
+    and V it attends over, so they are projected once."""
+    q, k, v = L._project_qkv(p, x, cfg, positions)
+    y = L.attend(p, q, k, v, cfg, window=window)
+    return y, L.KVCache(k.to(torch.bfloat16), v.to(torch.bfloat16))
+
+
+BlockCache = Dict[str, object]   # {"sub{j}": KVCache | MambaCache}
 
 
 class Block(nn.Module):
@@ -92,6 +154,21 @@ class Block(nn.Module):
         for sub in self.children():
             h = sub(h, positions)
         return h
+
+    def prefill(self, h: torch.Tensor, positions: torch.Tensor):
+        caches: BlockCache = {}
+        for name, sub in self.named_children():
+            h, caches[name] = sub.prefill(h, positions)
+        return h, caches
+
+    def decode(self, h: torch.Tensor, cache: BlockCache, pos: int):
+        new: BlockCache = {}
+        for name, sub in self.named_children():
+            h, new[name] = sub.decode(h, cache[name], pos)
+        return h, new
+
+    def init_cache(self, batch: int, smax: int) -> BlockCache:
+        return {name: sub.init_cache(batch, smax) for name, sub in self.named_children()}
 
 
 # ---------------------------------------------------------------------------
@@ -152,12 +229,41 @@ class LM(nn.Module):
         self.unembed = unembed
 
     def forward(self, batch: dict) -> torch.Tensor:
-        h = _run_blocks(self.blocks, _embed_tokens(self.embed, batch["tokens"], self.cfg))
-        w = self.embed if self.unembed is None else self.unembed
-        return _head(self.final_norm, w, h, self.cfg)
+        return self._logits(
+            _run_blocks(self.blocks, _embed_tokens(self.embed, batch["tokens"], self.cfg)))
 
     def loss(self, batch: dict) -> torch.Tensor:
         return _lm_loss(self(batch), batch)
+
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        w = self.embed if self.unembed is None else self.unembed
+        return _head(self.final_norm, w, h, self.cfg)
+
+    # ---- serving -------------------------------------------------------------
+    def init_cache(self, batch: int, smax: int) -> List[BlockCache]:
+        """An empty decode cache for ``smax`` positions, one dict per block."""
+        return [block.init_cache(batch, smax) for block in self.blocks]
+
+    def prefill(self, batch: dict) -> Tuple[torch.Tensor, List[BlockCache]]:
+        """Logits of the last position (B, 1, padded_vocab) and the cache."""
+        h = _embed_tokens(self.embed, batch["tokens"], self.cfg)
+        positions = torch.arange(h.shape[1], device=h.device)[None, :]
+        caches = []
+        for block in self.blocks:
+            h, cache = block.prefill(h, positions)
+            caches.append(cache)
+        return self._logits(h[:, -1:]), caches
+
+    def decode_step(self, cache: List[BlockCache], token: torch.Tensor,
+                    pos: int) -> Tuple[torch.Tensor, List[BlockCache]]:
+        """One token (B, 1) at host-int position ``pos``: logits (B, 1,
+        padded_vocab) and the cache with that position filled."""
+        h = _embed_tokens(self.embed, token, self.cfg)
+        new = []
+        for block, c in zip(self.blocks, cache):
+            h, c = block.decode(h, c, pos)
+            new.append(c)
+        return self._logits(h), new
 
     def split_params(self, split: int) -> Tuple["Prefix", "Suffix"]:
         """The frozen prefix and the trainable suffix at block boundary
@@ -212,9 +318,9 @@ def merge_params(frozen: Prefix, trainable: Suffix) -> LM:
 
 
 def build_lm(cfg: ModelConfig, *, device="cuda", generator: torch.Generator) -> LM:
-    """A randomly initialised dense LM on ``device``; ``generator`` must be a
-    generator of that device."""
-    if cfg.family != "dense":
+    """A randomly initialised dense or SSM LM on ``device``; ``generator``
+    must be a generator of that device."""
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(f"the {cfg.family} family is not ported yet")
     dt = dtype_of(cfg.param_dtype)
     embed = nn.Parameter(embed_init(generator, cfg.padded_vocab, cfg.d_model, dt, device))

@@ -10,10 +10,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as tdk
 from repro_torch.kernels import flash_attention as tfk
 from repro_torch.kernels import int8_transfer as tik
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd_scan as tsk
 
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -78,4 +80,86 @@ def test_cuda_flash_refuses_grad_and_counts_launches(card):
         tops.flash_attention(q, q, q)
         tops.dequantize_int8(*tops.quantize_int8(q[0]), dtype=torch.float32)
     assert tops.launch_counts() == {"flash_attention": 1, "quantize_int8": 1,
-                                    "dequantize_int8": 1}
+                                    "dequantize_int8": 1, "decode_attention": 0,
+                                    "ssd_scan": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,hq,hkv,hd,length,window,cap", [
+    (2, 1024, 8, 2, 64, 700, None, None),      # tests/test_kernels.py's cases
+    (1, 512, 4, 4, 128, 512, None, None),
+    (2, 768, 16, 8, 64, 100, None, None),
+    (1, 300, 8, 8, 64, 300, None, None),
+    (3, 64, 4, 2, 128, 1, None, None),         # one live key
+    (2, 200, 8, 1, 256, 77, None, 50.0),       # MQA, hd 256, softcap
+    (1, 4096, 16, 8, 256, 3000, 1024, 50.0),   # gemma2 local layer
+    (4, 544, 32, 8, 128, 544, None, None),     # the serving path's shape
+    (2, 100, 4, 4, 64, 90, 0, None),           # window 0: the newest key alone
+])
+def test_cuda_decode_attention_matches_plain(card, dtype, b, s, hq, hkv, hd, length,
+                                             window, cap):
+    dt = _TORCH[dtype]
+    q = torch.from_numpy(_normal((b, hq, hd), 1)).to(card, dt)
+    k = torch.from_numpy(_normal((b, s, hkv, hd), 2)).to(card, dt)
+    v = torch.from_numpy(_normal((b, s, hkv, hd), 3)).to(card, dt)
+    out = tdk.decode_attention_cuda(q, k, v, length, window=window, softcap=cap)
+    exp = tref.decode_attention(q, k, v, length, window=window, softcap=cap)
+    assert out.dtype == dt and out.shape == (b, hq, hd)
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_f32_query_on_bf16_cache(card):
+    """An f32 model decodes against the bf16 cache: q is read as f32."""
+    q = torch.from_numpy(_normal((2, 8, 128), 4)).to(card)
+    k = torch.from_numpy(_normal((2, 96, 2, 128), 5)).to(card, torch.bfloat16)
+    v = torch.from_numpy(_normal((2, 96, 2, 128), 6)).to(card, torch.bfloat16)
+    out = tops.decode_attention(q, k, v, 70)
+    exp = tref.decode_attention(q, k, v, 70)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), exp.float(), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 512, 8, 64, 128, 128),     # tests/test_kernels.py's cases
+    (1, 256, 4, 32, 64, 64),
+    (1, 256, 4, 32, 16, 128),
+    (2, 128, 8, 64, 128, 128),
+    (1, 512, 4, 64, 128, 256),     # mamba2's chunk
+    (2, 48, 3, 16, 16, 16),        # the smoke model's shape
+])
+def test_cuda_ssd_scan_matches_plain(card, dtype, b, s, h, p, n, chunk):
+    dt = _TORCH[dtype]
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(_normal((b, s, h, p), 10)).to(card, dt)
+    dts = torch.nn.functional.softplus(torch.from_numpy(_normal((b, s, h), 11))).to(card)
+    a = -torch.exp(torch.from_numpy(rng.standard_normal(h).astype(np.float32)) * 0.3).to(card)
+    B_ = torch.from_numpy(_normal((b, s, n), 12, 0.3)).to(card, dt)
+    C_ = torch.from_numpy(_normal((b, s, n), 13, 0.3)).to(card, dt)
+    y, st = tsk.ssd_scan_cuda(x, dts * a, dts, B_, C_, chunk=chunk)
+    ye, ste = tref.ssd_chunked(x, dts * a, dts, B_, C_, chunk=chunk)
+    assert y.dtype == torch.float32 and st.dtype == torch.float32
+    torch.testing.assert_close(y, ye, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(st, ste, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_serving_kernels_count_launches_and_refuse_bad_input(card):
+    tops.reset_launch_counts()
+    q = torch.zeros(1, 4, 64, device=card)
+    kv = torch.zeros(1, 32, 2, 64, device=card)
+    tops.decode_attention(q, kv, kv, 5)
+    x = torch.zeros(1, 32, 2, 16, device=card)
+    bc = torch.zeros(1, 32, 16, device=card)
+    dts = torch.zeros(1, 32, 2, device=card)
+    tops.ssd_scan(x, dts, dts, bc, bc, chunk=16)
+    counts = tops.launch_counts()
+    assert (counts["decode_attention"], counts["ssd_scan"]) == (1, 1)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        tops.ssd_scan(x[:, :30], dts[:, :30], dts[:, :30], bc[:, :30], bc[:, :30], chunk=16)
+    with pytest.raises(ValueError, match="length"):
+        tops.decode_attention(q, kv, kv, 33)

@@ -17,12 +17,18 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention_pallas
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.int8_transfer import dequantize_int8_pallas, quantize_int8_pallas
+from repro.kernels.ssd_scan import ssd_scan_pallas
+from repro.models.ssm import ssd_chunked as jax_ssd_chunked
+from repro_torch.kernels import decode_attention as tdk
 from repro_torch.kernels import flash_attention as tfk
 from repro_torch.kernels import int8_transfer as tik
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd_scan as tsk
+from repro_torch.models import ssm as tssm
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -168,6 +174,135 @@ def test_flash_plain_bf16_matches_jax_ref(causal, window, cap):
 
 
 # ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+DECODE_CASES = [
+    # b, s, hq, hkv, hd, length: tests/test_kernels.py's cases
+    (2, 1024, 8, 2, 64, 700),
+    (1, 512, 4, 4, 128, 512),
+    (2, 768, 16, 8, 64, 100),    # GQA 2:1, short fill
+    (1, 300, 8, 8, 64, 300),     # 300 is not a multiple of the 256 block
+]
+
+
+def _decode_inputs(b, s, hq, hkv, hd, seed=20):
+    return (_normal((b, hq, hd), seed), _normal((b, s, hkv, hd), seed + 1),
+            _normal((b, s, hkv, hd), seed + 2))
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,hd,length", DECODE_CASES)
+def test_decode_plain_matches_jax_ref_and_pallas(b, s, hq, hkv, hd, length):
+    qn, kn, vn = _decode_inputs(b, s, hq, hkv, hd)
+    out = tops.decode_attention(*(torch.from_numpy(a) for a in (qn, kn, vn)), length)
+    assert out.shape == (b, hq, hd) and out.dtype == torch.float32
+    jq, jk, jv = (jnp.asarray(a) for a in (qn, kn, vn))
+    exp = jref.decode_attention(jq, jk, jv, jnp.int32(length))
+    pal = decode_attention_pallas(jq, jk, jv, length, s_block=256, interpret=True)
+    np.testing.assert_allclose(_np(out), np.asarray(exp), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(_np(out), np.asarray(pal), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("length,cap", [(1, None), (77, 50.0), (160, None)])
+def test_decode_plain_bf16_and_softcap_match_jax_ref(length, cap):
+    """bf16 caches, lengths of 1 and off the tile, softcap: P is cast to the
+    cache's type before P.V, as in the oracle."""
+    qn, kn, vn = _decode_inputs(2, 160, 8, 2, 64, seed=30)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, "bfloat16") for a in (qn, kn, vn))
+    out = tops.decode_attention(tq, tk, tv, length, softcap=cap)
+    exp = jref.decode_attention(jq, jk, jv, jnp.int32(length), softcap=cap)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(out), _np(exp), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("length,window", [(100, 0), (100, 16), (17, 16), (5, 16)])
+def test_decode_window_is_attention_decodes_mask(length, window):
+    """window admits kpos >= length - 1 - window: the mask of the JAX
+    attention_decode's local layers, which is the full decode over the
+    window's keys alone."""
+    qn, kn, vn = _decode_inputs(1, 128, 4, 2, 32, seed=40)
+    out = tops.decode_attention(*(torch.from_numpy(a) for a in (qn, kn, vn)), length,
+                                window=window, softcap=30.0)
+    lo = max(0, length - 1 - window)
+    exp = jref.decode_attention(jnp.asarray(qn), jnp.asarray(kn[:, lo:]),
+                                jnp.asarray(vn[:, lo:]), jnp.int32(length - lo),
+                                softcap=30.0)
+    np.testing.assert_allclose(_np(out), np.asarray(exp), atol=2e-5, rtol=2e-5)
+
+
+def test_decode_partition_covers_live_keys():
+    for n_keys in (1, 31, 32, 33, 544, 3000, 32768):
+        for pairs in (1, 32, 4096):
+            per, parts = tdk.partition(n_keys, pairs)
+            assert per % tdk.TILE == 0 and (parts - 1) * per < n_keys <= parts * per
+    assert tdk.partition(544, 32) == (32, 17)
+    assert tdk.partition(32768, 32) == (256, 128)
+    assert tdk.live_keys(544, None) == (0, 544)
+    assert tdk.live_keys(100, 16) == (83, 100)
+    assert tdk.live_keys(5, 16) == (0, 5)
+
+
+# ---------------------------------------------------------------------------
+# SSD scan
+# ---------------------------------------------------------------------------
+def _ssd_inputs(b, s, h, p, n, seed=50):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    a = -np.exp(rng.standard_normal(h) * 0.3).astype(np.float32)
+    B_ = (rng.standard_normal((b, s, n)) * 0.3).astype(np.float32)
+    C_ = (rng.standard_normal((b, s, n)) * 0.3).astype(np.float32)
+    return x, (dt * a).astype(np.float32), dt, B_, C_
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,hb", [
+    (2, 512, 8, 64, 128, 128, 4),    # tests/test_kernels.py's cases
+    (1, 256, 4, 32, 64, 64, 4),
+    (1, 256, 4, 32, 16, 128, 2),     # jamba-like small state
+    (2, 128, 8, 64, 128, 128, 8),    # single chunk
+])
+def test_ssd_plain_matches_jax_ref_and_pallas(b, s, h, p, n, chunk, hb):
+    args = _ssd_inputs(b, s, h, p, n)
+    y, st = tops.ssd_scan(*(torch.from_numpy(a) for a in args), chunk=chunk)
+    assert y.dtype == torch.float32 and st.shape == (b, h, n, p)
+    ye, ste = jref.ssd_reference(*(jnp.asarray(a) for a in args))
+    yp, stp = ssd_scan_pallas(*(jnp.asarray(a) for a in args), chunk=chunk, head_block=hb,
+                              interpret=True)
+    for got, want in ((y, ye), (st, ste), (y, yp), (st, stp)):
+        np.testing.assert_allclose(_np(got), np.asarray(want), atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("s,chunk", [(64, 16), (48, 48), (32, 256)])
+def test_ssd_chunked_and_recurrence_match_jax(s, chunk):
+    """The port's chunked form (the kernel's plain version) and its sequential
+    recurrence against the JAX package's, in f32."""
+    args = _ssd_inputs(2, s, 3, 16, 16, seed=60)
+    targs, jargs = [torch.from_numpy(a) for a in args], [jnp.asarray(a) for a in args]
+    y, st = tssm.ssd_chunked(*targs, chunk=chunk)
+    yj, stj = jax_ssd_chunked(*jargs, None, chunk=chunk)
+    yr, str_ = tref.ssd_reference(*targs)
+    yrj, strj = jref.ssd_reference(*jargs)
+    for got, want in ((y, yj), (st, stj), (yr, yrj), (str_, strj), (y, yrj)):
+        np.testing.assert_allclose(_np(got), np.asarray(want), atol=2e-4, rtol=2e-4)
+
+
+def test_ssd_chunked_has_no_nan_where_decay_overflows():
+    """exp(cum_i - cum_j) above the diagonal overflows to inf for strong
+    decay; the chunked form selects 0 there rather than multiplying."""
+    x, dta, dt, B_, C_ = _ssd_inputs(1, 64, 2, 16, 16, seed=70)
+    y, st = tref.ssd_chunked(*(torch.from_numpy(a) for a in (x, dta * 200, dt, B_, C_)),
+                             chunk=64)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+
+
+def test_ssd_raises_on_a_ragged_chunk():
+    args = [torch.from_numpy(a) for a in _ssd_inputs(1, 40, 2, 16, 16)]
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        tops.ssd_scan(*args, chunk=16)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        tsk.ssd_scan_cuda(*args, chunk=16)
+
+
+# ---------------------------------------------------------------------------
 # Dispatch: CUDA wrappers take CUDA tensors only
 # ---------------------------------------------------------------------------
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -181,6 +316,20 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tfk.flash_attention_cuda(q, q, q)
 
 
+def test_serving_wrappers_refuse_cpu_tensors():
+    q, kv = torch.zeros(1, 4, 64), torch.zeros(1, 32, 2, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdk.decode_attention_cuda(q, kv, kv, 8)
+    with pytest.raises(ValueError, match="length"):
+        tdk.decode_attention_cuda(q, kv, kv, 33)
+    with pytest.raises(ValueError, match="head_dim"):
+        tdk.decode_attention_cuda(torch.zeros(1, 4, 48), torch.zeros(1, 8, 2, 48),
+                                  torch.zeros(1, 8, 2, 48), 8)
+    x, bc, dts = torch.zeros(1, 32, 2, 16), torch.zeros(1, 32, 16), torch.zeros(1, 32, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsk.ssd_scan_cuda(x, dts, dts, bc, bc, chunk=16)
+
+
 def test_flash_wrapper_rejects_unsupported_head_dim():
     q = torch.zeros(1, 8, 2, 48)
     with pytest.raises(ValueError, match="head_dim"):
@@ -190,7 +339,8 @@ def test_flash_wrapper_rejects_unsupported_head_dim():
 def test_launch_counts_reset():
     tops.reset_launch_counts()
     assert tops.launch_counts() == {"flash_attention": 0, "quantize_int8": 0,
-                                    "dequantize_int8": 0}
+                                    "dequantize_int8": 0, "decode_attention": 0,
+                                    "ssd_scan": 0}
     # The plain versions launch nothing.
     tops.quantize_int8(torch.ones(2, 128))
     assert sum(tops.launch_counts().values()) == 0

@@ -182,7 +182,7 @@ def test_convert_bf16_goes_through_f32_exactly():
                                   np.asarray(jbf, np.float32))
 
 
-@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "mamba2-1.3b", "jamba-v0.1-52b",
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "jamba-v0.1-52b",
                                   "llava-next-mistral-7b", "whisper-small"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError):
