@@ -284,6 +284,24 @@ def check_flash() -> dict:
                 f"scaled_dot_product_attention {main['library_ms']:.4f} ms")
         del q, k, v, out, exp, kr, vr
         torch.cuda.empty_cache()
+    # The same kernel at the suffix's shape and the serving prefill's, each
+    # beside SDPA from this run.
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for what, b, s in (("suffix", 4, 4096), ("serving prefill", 4, 512)):
+        q = randn((b, s, 32, 128), torch.bfloat16, seed=1)
+        k = randn((b, s, 8, 128), torch.bfloat16, seed=2)
+        v = randn((b, s, 8, 128), torch.bfloat16, seed=3)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        fb, fby = bound((2 * b * s * 32 * 128 + 2 * b * s * 8 * 128) * 2,
+                        4 * 128 * b * 32 * live_pairs(s, True, None), HW.peak_flops_bf16)
+        n = 10 if s > 512 else 100
+        ms = device_ms(lambda: flash_attention_cuda(q, k, v), n)
+        lib_ms = device_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), n)
+        log(f"flash_attention at the {what} shape ({b} x {s}, 32/8 heads, hd 128, causal, "
+            f"bf16): {ms:.4f} ms, bound {fb:.4f} ms ({fby}), scaled_dot_product_attention "
+            f"{lib_ms:.4f} ms")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
     return {"flash_attention": main}
 
 

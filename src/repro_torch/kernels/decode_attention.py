@@ -1,18 +1,27 @@
 """GQA decode attention of one token: the wrapper of the CUDA kernel.
 
 Counterpart of ``repro/kernels/decode_attention.py``. The kernel is in
-``csrc/decode_attention.cu``: flash-decoding, the live keys of each (batch,
-KV head) cut into parts of one warp each, then a pass that combines the
-parts. ``length`` is a host int, so a decode step never waits on the card to
-learn it, and it sizes the grid: only live keys are read. ``window`` admits
-``kpos >= length - 1 - window`` (gemma2's local layers); with ``window=None``
-the kernel computes the Pallas kernel's function.
+``csrc/decode_attention.cu``: flash-decoding in one launch. ``partition``
+cuts the live keys of each (batch, KV head) pair into splits so that the
+blocks fill a wave of the SMs; a block streams its split through a ring of
+shared-memory stages, and the splits of a pair combine in the same launch.
+Splits of up to CLUSTER_KEYS keys form a thread-block cluster and combine
+through each other's shared memory; longer ones combine through f32 scratch
+and a per-pair counter, which the wrapper allocates once per (device, size
+class) and the kernel sets back to 0, so the scratch is ready for the next
+call and a CUDA graph may replay the calls (calls that share it run in order
+on one stream; a size class first met during capture raises). ``length`` is
+a host int, so a decode step never waits on the card to learn it, and it
+sizes the grid: only live keys are read. ``window`` admits
+``kpos >= length - 1 - window`` (gemma2's local layers); with
+``window=None`` the kernel computes the Pallas kernel's function.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -21,8 +30,12 @@ from repro_torch.kernels.flash_attention import softmax_scale
 
 HEAD_DIMS = (64, 128, 256)
 GROUP_SIZES = (1, 2, 4, 8)       # query heads per KV head
-TILE = 32                        # keys a warp stages at once
-TARGET_WARPS = 4096              # parts of all (batch, KV head) pairs in flight
+TILE = 64                        # keys in a stage of the kernel's ring (at hd 128, bf16)
+MIN_SPLIT_KEYS = 64              # the fewest keys worth a block of their own
+MAX_SPLITS = 8                   # a cluster holds 8 blocks at most
+CLUSTER_KEYS = 1024              # splits of up to this many keys combine in a cluster
+WAVES = 1                        # at most this many blocks per SM
+H100_SMS = 132
 _SIGNATURES = {
     "decode_attention_fwd": (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 8
@@ -30,6 +43,7 @@ _SIGNATURES = {
         ctypes.c_int),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_SCRATCH: Dict[tuple, tuple] = {}   # (device, rows class) -> (part_ml, part_acc, counters)
 
 launches = 0
 
@@ -40,12 +54,42 @@ def live_keys(length: int, window: Optional[int]) -> tuple:
     return lo, length
 
 
-def partition(n_keys: int, pairs: int) -> tuple:
-    """(keys_per_part, n_parts): parts of whole 32-key tiles, enough of them
-    over ``pairs`` (batch, KV head) pairs to give about TARGET_WARPS warps."""
-    target = max(1, math.ceil(TARGET_WARPS / pairs))
-    per = TILE * max(1, math.ceil(n_keys / (TILE * target)))
+def partition(n_keys: int, pairs: int, sms: int = H100_SMS) -> tuple:
+    """(keys_per_split, n_splits) for ``n_keys`` live keys in each of
+    ``pairs`` (batch, KV head) pairs: the smallest whole number of stages
+    per split, at least MIN_SPLIT_KEYS keys, that keeps the grid within
+    WAVES blocks per SM and a pair within MAX_SPLITS blocks. One split where
+    the pairs fill the SMs already."""
+    max_splits = min(MAX_SPLITS, WAVES * sms // pairs)
+    if pairs >= sms or n_keys <= MIN_SPLIT_KEYS:
+        return n_keys, 1
+    per = max(MIN_SPLIT_KEYS, TILE * math.ceil(n_keys / (TILE * max_splits)))
+    while math.ceil(n_keys / per) > max_splits:
+        per += TILE
     return per, math.ceil(n_keys / per)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _scratch(device: torch.device, rows: int) -> tuple:
+    """Partials for ``rows`` (pair, split, query head) rows and counters for
+    as many pairs, from the cache; a new size class is allocated with its
+    counters at 0."""
+    cls = 1 << max(0, rows - 1).bit_length()
+    key = (device.index, cls)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("decode attention met a new scratch size during CUDA-graph "
+                               "capture; call it once at this shape before capturing")
+        f32 = dict(dtype=torch.float32, device=device)
+        buf = (torch.empty((cls, 2), **f32), torch.empty((cls, max(HEAD_DIMS)), **f32),
+               torch.zeros(cls, dtype=torch.int32, device=device))
+        _SCRATCH[key] = buf
+    return buf
 
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -89,24 +133,24 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
         if t.data_ptr() % 16 or any(st % vec for st in t.stride()[:3]):
             raise ValueError(f"{name} needs 16-byte aligned rows")
     lo, hi = live_keys(length, window)
-    per, n_parts = partition(hi - lo, b * hkv)
-    rep = hq // hkv
-    f32 = dict(dtype=torch.float32, device=q.device)
-    part_m = torch.empty((b * hkv, n_parts, rep), **f32)
-    part_l = torch.empty((b * hkv, n_parts, rep), **f32)
-    part_acc = torch.empty((b * hkv, n_parts, rep, hd), **f32)
+    per, n_splits = partition(hi - lo, b * hkv, _sm_count(q.device.index))
     out = torch.empty((b, hq, hd), dtype=k_cache.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(q.device):
-        rc = _build.load("decode_attention", _SIGNATURES).decode_attention_fwd(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+    scratch = (None, None, None)
+    if n_splits > 1 and per > CLUSTER_KEYS:
+        scratch = tuple(t.data_ptr() for t in _scratch(q.device, b * hq * n_splits))
+    args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(), *scratch,
             _DTYPE_CODE[k_cache.dtype], int(q.dtype != k_cache.dtype), b, hq, hkv, hd,
             q.stride(0), q.stride(1), *k_cache.stride()[:3], *v_cache.stride()[:3],
-            lo, hi, per, n_parts,
-            0.0 if softcap is None else float(softcap), softmax_scale(hd),
-            torch.cuda.current_stream().cuda_stream)
+            lo, hi, per, n_splits,
+            0.0 if softcap is None else float(softcap), softmax_scale(hd))
+    fwd = _build.load("decode_attention", _SIGNATURES).decode_attention_fwd
+    if q.device.index == torch.cuda.current_device():
+        rc = fwd(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(q.device):
+            rc = fwd(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel failed: CUDA error {rc}")
     launches += 1

@@ -2,11 +2,15 @@
 
 Counterpart of ``repro/kernels/flash_attention.py``. The kernel is in
 ``csrc/flash_attention.cu``: online softmax over the KV tiles that the
-causal and window masks leave live, f32 m/l/acc, an optional tanh softcap,
-``mma.sync`` for bf16 and FMA for f32. It keeps the public
-``(B, S, H, hd)`` layout and takes K and V with ``H`` heads or with ``Hkv``
-heads where ``Hkv`` divides ``H``; query head ``h`` then reads KV head
-``h // (H // Hkv)``, the order of ``layers._repeat_kv``.
+causal and window masks leave live, f32 m/l/acc, an optional tanh softcap.
+bf16 runs on ``wgmma`` with TMA loads and a producer warpgroup feeding two
+consumer warpgroups (``tile_config`` gives its tiles); f32 takes an FMA
+path. It keeps the public ``(B, S, H, hd)`` layout and takes K and V with
+``H`` heads or with ``Hkv`` heads where ``Hkv`` divides ``H``; query head
+``h`` then reads KV head ``h // (H // Hkv)``, the order of
+``layers._repeat_kv``. q, k and v may be strided views (of a fused QKV
+tensor, say) as long as the last stride is 1 and rows are 16-byte aligned,
+which is what TMA needs.
 
 Forward only: where autograd is on, the wrapper raises on an input that
 requires grad rather than hide the kernel behind a differentiable fallback.
@@ -27,10 +31,30 @@ _SIGNATURES = {
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
         + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
         ctypes.c_int),
+    "flash_attention_tile": ([ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4,
+                             ctypes.c_int),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# The bf16 kernel's tiles, as csrc/flash_attention.cu's Layout sets them.
+BLOCK_M = 128            # query rows a block owns, 64 per consumer warpgroup
+STAGES = 2               # depth of the K/V ring
+TMA_BOX = 64             # bf16 values in a TMA box's inner extent: 128 bytes, one swizzle row
+SMEM_LIMIT = 232_448     # dynamic shared memory a block may use on an H100
+N_BARRIERS = 3 + 3 * STAGES   # Q full; K full, V full, empty per stage; two turns
+
 launches = 0
+
+
+def tile_config(hd: int) -> tuple:
+    """(BM, BN, stages, shared bytes) of the bf16 kernel at head dim ``hd``:
+    Q once, then ``stages`` K and V tiles of BN keys, the mbarriers, and 1 KB
+    to align the buffers to the swizzle's period."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    bn = 64 if hd == 256 else 128
+    smem = 2 * hd * (BLOCK_M + 2 * STAGES * bn) + 8 * N_BARRIERS + 1024
+    return BLOCK_M, bn, STAGES, smem
 
 
 @functools.lru_cache(maxsize=None)
@@ -72,14 +96,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(q.device):
-        rc = _build.load("flash_attention", _SIGNATURES).flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPE_CODE[q.dtype], b, s, h, hkv, hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             int(causal), -1 if window is None else int(window),
-            0.0 if softcap is None else float(softcap), softmax_scale(hd),
-            torch.cuda.current_stream().cuda_stream)
+            0.0 if softcap is None else float(softcap), softmax_scale(hd))
+    fwd = _build.load("flash_attention", _SIGNATURES).flash_attention_fwd
+    if q.device.index == torch.cuda.current_device():
+        rc = fwd(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(q.device):
+            rc = fwd(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel failed: CUDA error {rc}")
     launches += 1

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as tdk
 from repro_torch.kernels import flash_attention as tfk
 from repro_torch.kernels import int8_transfer as tik
@@ -69,6 +70,71 @@ def test_cuda_flash_matches_plain(card, dtype, b, s, h, hkv, hd, causal, window,
     torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
 
 
+def _flash_check(q, k, v, causal, window, cap):
+    out = tfk.flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=cap)
+    rep = q.shape[2] // k.shape[2]
+    exp = tref.flash_attention(q, tops.repeat_kv(k, rep), tops.repeat_kv(v, rep),
+                               causal=causal, window=window, softcap=cap)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), exp.float(), atol=2e-2, rtol=2e-2)
+
+
+_FLASH_SEQS = (1, 63, 127, 129, 1000, 4096)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("s", _FLASH_SEQS)
+def test_cuda_flash_bf16_sequence_edges(card, s, hd):
+    """The wgmma kernel across ragged q and KV tiles (S around the 128-row q
+    tile and the 64/128-key KV tile), GQA groups 1, 4 and 8 in turn."""
+    rep = (1, 4, 8)[(_FLASH_SEQS.index(s) + hd // 64) % 3]
+    hkv = 2 if s >= 1000 else 1
+    q = torch.from_numpy(_normal((1, s, hkv * rep, hd), 21)).to(card, torch.bfloat16)
+    k = torch.from_numpy(_normal((1, s, hkv, hd), 22)).to(card, torch.bfloat16)
+    v = torch.from_numpy(_normal((1, s, hkv, hd), 23)).to(card, torch.bfloat16)
+    _flash_check(q, k, v, True, None, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,hd,causal,window,cap", [
+    (1000, 128, True, 100, None),      # window crossing tiles
+    (4096, 256, True, 1024, 50.0),     # gemma2 local
+    (129, 64, False, None, None),      # bidirectional
+    (1000, 64, False, 100, 30.0),      # future keys admitted, softcap
+    (127, 256, False, 0, None),        # window 0
+    (63, 128, True, None, 50.0),
+])
+def test_cuda_flash_bf16_masks(card, s, hd, causal, window, cap):
+    q = torch.from_numpy(_normal((2, s, 8, hd), 24)).to(card, torch.bfloat16)
+    k = torch.from_numpy(_normal((2, s, 2, hd), 25)).to(card, torch.bfloat16)
+    v = torch.from_numpy(_normal((2, s, 2, hd), 26)).to(card, torch.bfloat16)
+    _flash_check(q, k, v, causal, window, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,hd", [(129, 128), (1000, 64), (300, 256)])
+def test_cuda_flash_bf16_strided_views_of_fused_qkv(card, s, hd):
+    """q, k and v as views of one (B, S, H + 2 Hkv, hd) tensor: the tensor
+    maps take the fused tensor's strides."""
+    h, hkv = 8, 2
+    qkv = torch.from_numpy(_normal((2, s, h + 2 * hkv, hd), 27)).to(card, torch.bfloat16)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + hkv], qkv[:, :, h + hkv:]
+    assert not q.is_contiguous()
+    _flash_check(q, k, v, True, None, None)
+    _flash_check(q, k, v, False, 50, None)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_tile_config_matches_the_kernel(card):
+    import ctypes
+    lib = _build.load("flash_attention", tfk._SIGNATURES)
+    for hd in tfk.HEAD_DIMS:
+        got = [ctypes.c_int() for _ in range(4)]
+        assert lib.flash_attention_tile(hd, *(ctypes.byref(x) for x in got)) == 0
+        assert tuple(x.value for x in got) == tfk.tile_config(hd)
+
+
 @pytest.mark.cuda
 def test_cuda_flash_refuses_grad_and_counts_launches(card):
     q = torch.zeros(1, 64, 2, 64, device=card, requires_grad=True)
@@ -108,6 +174,38 @@ def test_cuda_decode_attention_matches_plain(card, dtype, b, s, hq, hkv, hd, len
     assert out.dtype == dt and out.shape == (b, hq, hd)
     tol = 2e-5 if dtype == "float32" else 3e-2
     torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 300])
+def test_cuda_decode_consecutive_calls_and_graph_replay(card, window):
+    """Calls at lengths 1, 33, 544 and 32,768 one after another: one split,
+    splits combined in a cluster, and at 32,768 splits combined through the
+    scratch and its counters. Then 5 calls captured in one CUDA graph and
+    replayed twice give the eager results, so every call leaves the counters
+    at 0."""
+    b, s, hq, hkv, hd = 4, 32768, 32, 8, 128
+    q = torch.from_numpy(_normal((b, hq, hd), 31)).to(card, torch.bfloat16)
+    k = torch.from_numpy(_normal((b, s, hkv, hd), 32)).to(card, torch.bfloat16)
+    v = torch.from_numpy(_normal((b, s, hkv, hd), 33)).to(card, torch.bfloat16)
+    lengths = (1, 33, 544, 32768)
+    for length in lengths + lengths:
+        out = tdk.decode_attention_cuda(q, k, v, length, window=window)
+        exp = tref.decode_attention(q, k, v, length, window=window)
+        torch.testing.assert_close(out.float(), exp.float(), atol=3e-2, rtol=3e-2)
+    torch.cuda.synchronize()
+    captured = (1, 33, 544, 32768, 544)
+    eager = [tdk.decode_attention_cuda(q, k, v, n, window=window) for n in captured]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [tdk.decode_attention_cuda(q, k, v, n, window=window) for n in captured]
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(outs, eager):
+            torch.testing.assert_close(got.float(), want.float(), atol=1e-6, rtol=0)
 
 
 @pytest.mark.cuda

@@ -233,12 +233,59 @@ def test_decode_partition_covers_live_keys():
     for n_keys in (1, 31, 32, 33, 544, 3000, 32768):
         for pairs in (1, 32, 4096):
             per, parts = tdk.partition(n_keys, pairs)
-            assert per % tdk.TILE == 0 and (parts - 1) * per < n_keys <= parts * per
-    assert tdk.partition(544, 32) == (32, 17)
-    assert tdk.partition(32768, 32) == (256, 128)
+            assert (parts - 1) * per < n_keys <= parts * per
+            assert parts == 1 or per % tdk.TILE == 0
+    assert tdk.partition(544, 32) == (192, 3)        # a cluster of 3
+    assert tdk.partition(32768, 32) == (8192, 4)     # scratch and counters
     assert tdk.live_keys(544, None) == (0, 544)
     assert tdk.live_keys(100, 16) == (83, 100)
     assert tdk.live_keys(5, 16) == (0, 5)
+
+
+_LENGTHS = (1, 2, 31, 64, 65, 100, 544, 1000, 4097, 32768, 70000)
+
+
+@pytest.mark.parametrize("window", [None, 0, 100, 1024])
+@pytest.mark.parametrize("length", _LENGTHS)
+def test_decode_split_schedule_covers_live_keys_once(length, window):
+    """The splits tile [lo, hi) exactly once, each at least MIN_SPLIT_KEYS
+    keys where there are more; a pair takes at most MAX_SPLITS blocks (a
+    cluster), the grid at most WAVES waves of the SMs (one split once the
+    pairs fill a wave), and a split is the fewest whole stages that keep to
+    those limits, so the grid fills the waves as far as the keys allow."""
+    lo, hi = tdk.live_keys(length, window)
+    sms = tdk.H100_SMS
+    for pairs in (1, 4, 8, 32, 40, 67, 100, 132, 133, 264, 300):
+        per, n = tdk.partition(hi - lo, pairs)
+        starts = [lo + i * per for i in range(n)]
+        ends = [min(hi, st + per) for st in starts]
+        covered = np.zeros(hi - lo, np.int64)
+        for st, en in zip(starts, ends):
+            assert lo <= st < en <= hi       # every split holds live keys
+            covered[st - lo:en - lo] += 1
+        assert (covered == 1).all()
+        if n > 1:
+            assert per % tdk.TILE == 0 and per >= tdk.MIN_SPLIT_KEYS
+        cap = 1 if pairs >= sms else min(tdk.MAX_SPLITS, tdk.WAVES * sms // pairs)
+        assert n <= cap and pairs * n <= max(pairs, tdk.WAVES * sms)
+        fewer = per - tdk.TILE
+        if n > 1 and fewer >= tdk.MIN_SPLIT_KEYS:
+            assert math.ceil((hi - lo) / fewer) > cap
+
+
+@pytest.mark.parametrize("hd", tfk.HEAD_DIMS)
+def test_flash_tile_config_fits_the_card(hd):
+    """BM 128 (two consumer warpgroups of 64 rows), BN a wgmma width, the
+    ring and Q within a block's shared memory, TMA boxes of 64 bf16."""
+    bm, bn, stages, smem = tfk.tile_config(hd)
+    assert bm == 128 and stages >= 2
+    assert bn % 8 == 0 and 8 <= bn <= 256 and bn % 16 == 0
+    assert smem <= tfk.SMEM_LIMIT == 232_448
+    assert smem >= 2 * hd * (bm + 2 * stages * bn)
+    assert tfk.TMA_BOX * 2 == 128 and hd % tfk.TMA_BOX == 0
+    assert {64: 128, 128: 128, 256: 64}[hd] == bn
+    with pytest.raises(ValueError, match="head_dim"):
+        tfk.tile_config(96)
 
 
 # ---------------------------------------------------------------------------
