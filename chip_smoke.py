@@ -377,14 +377,19 @@ SSD_CASES = [
     (1, 256, 4, 32, 16, 128, torch.float32),
     (2, 128, 8, 64, 128, 128, torch.float32),
     (2, 48, 3, 16, 16, 16, torch.float32),       # the smoke model's widths
+    (2, 48, 3, 16, 16, 16, torch.bfloat16),
+    (2, 768, 4, 64, 128, 256, torch.bfloat16),   # slow decay (rate exp(-4)), 3 chunks
     (4, 512, 64, 64, 128, 256, torch.bfloat16),  # the path's shape
 ]
+SLOW_DECAY = (2, 768, 4, 64, 128, 256)
 
 
-def ssd_inputs(b, s, h, p, n, dt, seed=10):
+def ssd_inputs(b, s, h, p, n, dt, seed=10, a_log=None):
+    """Decay rates -exp(0.3 z) per head, or -exp(a_log) (slow where a_log is -4)."""
     x = randn((b, s, h, p), dt, seed)
     dts = torch.nn.functional.softplus(randn((b, s, h), torch.float32, seed + 1))
-    a = -torch.exp(randn((h,), torch.float32, seed + 2) * 0.3)
+    a = -torch.exp(randn((h,), torch.float32, seed + 2) * 0.3 if a_log is None
+                   else torch.full((h,), a_log, device="cuda"))
     return x, dts * a, dts, randn((b, s, n), dt, seed + 3) * 0.3, \
         randn((b, s, n), dt, seed + 4) * 0.3
 
@@ -394,35 +399,41 @@ def ssd_bound(b, s, h, p, n, q, itemsize):
     state written once in f32. Operations: the least the chunked form needs,
     with the within-chunk products over the lower triangle only: per chunk
     C.B^T once per batch row, and per head the masked (C.B^T * L).(x dt),
-    the carried state's C.state and the state update B^T.(x dt), all f32."""
+    the carried state's C.state and the state update B^T.(x dt). The bf16
+    kernel runs them on the tensor cores, so they count at the bf16 peak;
+    the f32 FMA bound of earlier runs comes back beside it."""
     nbytes = (b * s * h * p + 2 * b * s * n) * itemsize + 2 * b * s * h * 4 \
         + (b * s * h * p + b * h * n * p) * 4
     tri = q * (q + 1) // 2
     chunks = s // q
     flops = b * chunks * (2 * tri * n + h * (2 * tri * p + 4 * q * n * p))
-    return bound(nbytes, flops, HW.peak_flops_f32), flops
+    return bound(nbytes, flops, HW.peak_flops_bf16), flops, \
+        bound(nbytes, flops, HW.peak_flops_f32)[0]
 
 
 def check_ssd() -> dict:
     row = None
     for b, s, h, p, n, chunk, dt in SSD_CASES:
-        args = ssd_inputs(b, s, h, p, n, dt)
+        slow = (b, s, h, p, n, chunk) == SLOW_DECAY
+        args = ssd_inputs(b, s, h, p, n, dt, a_log=-4.0 if slow else None)
         y, st = ssd_scan_cuda(*args, chunk=chunk)
         ye, ste = ref.ssd_chunked(*args, chunk=chunk)
         err = max(float((y - ye).abs().max()), float((st - ste).abs().max()))
         torch.testing.assert_close(y, ye, atol=SSD_TOL, rtol=SSD_TOL)
         torch.testing.assert_close(st, ste, atol=SSD_TOL, rtol=SSD_TOL)
-        log(f"ssd B={b} S={s} H={h} P={p} N={n} chunk={chunk} {str(dt)[6:]}: "
-            f"max abs err {err:.3g} (tol {SSD_TOL:g})")
+        log(f"ssd B={b} S={s} H={h} P={p} N={n} chunk={chunk} {str(dt)[6:]}"
+            f"{' slow decay' if slow else ''}: max abs err {err:.3g} (tol {SSD_TOL:g}), "
+            f"max |y| {float(ye.abs().max()):.3g}")
         if (b, s, h, p, n, chunk) == (4, 512, 64, 64, 128, 256):
-            (sb, sby), flops = ssd_bound(b, s, h, p, n, chunk, 2)
+            (sb, sby), flops, fma_ms = ssd_bound(b, s, h, p, n, chunk, 2)
             row = dict(max_abs_err=err,
                        ms=device_ms(lambda: ssd_scan_cuda(*args, chunk=chunk), 20),
                        plain_ms=time_ms(lambda: ref.ssd_chunked(*args, chunk=chunk), 5, 1),
                        bound_ms=sb, bound_by=sby, library_ms=None)
             log(f"ssd_scan (x 4 x 512 x 64 x 64 bf16, N 128, chunk 256): {row['ms']:.4f} ms, "
-                f"plain {row['plain_ms']:.4f} ms, bound {sb:.4f} ms ({sby}, "
-                f"{flops / 1e9:.3f} GFLOP lower-triangle f32)")
+                f"plain {row['plain_ms']:.4f} ms, bound {sb:.4f} ms ({sby}; "
+                f"{flops / 1e9:.3f} GFLOP lower-triangle at the bf16 peak), "
+                f"f32 FMA bound {fma_ms:.4f} ms")
         del args, y, st, ye, ste
         free()
     return {"ssd_scan": row}

@@ -1,11 +1,15 @@
 """Mamba2 SSD chunked scan: the wrapper of the CUDA kernel.
 
 Counterpart of ``repro/kernels/ssd_scan.py``. The kernel is in
-``csrc/ssd_scan.cu``: one block per (batch, head) walks the chunks in order
-with the (N, P) f32 state in shared memory, query rows in tiles of 64, only
-the lower triangle of each chunk's decay matrix computed. It owns a zero
-initial state, as the Pallas kernel does, and writes y in f32, as the model's
-``ssm.ssd_chunked`` returns it (the Pallas kernel writes y in x's type).
+``csrc/ssd_scan.cu``. For bf16 inputs (the model's path) one block of four
+warps owns a (batch, head) and a slice of the head's columns and walks the
+chunks in order: its four products run on the tensor cores (``mma.sync``),
+with the f32 operands (the decay-weighted C.B^T, the state, the scaled x)
+split into two bf16 halves, and the state stays in registers across chunks.
+``launch_config`` gives that launch. For f32 inputs an FMA kernel takes one
+block per (batch, head). Both own a zero initial state, as the Pallas kernel
+does, and write y in f32, as the model's ``ssm.ssd_chunked`` returns it (the
+Pallas kernel writes y in x's type).
 """
 from __future__ import annotations
 
@@ -18,13 +22,44 @@ from repro_torch.kernels import _build
 
 MAX_STATE = 128       # N
 MAX_HEAD_DIM = 64     # P
+TILE = 64             # query rows of a tile and keys of a key tile (bf16 kernel)
+THREADS = 128         # four warps, 16 query rows each
+PBLK = 64             # columns of P a block owns where P allows, else 32 or 16
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on an H100
 _SIGNATURES = {
     "ssd_scan_fwd": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
                      ctypes.c_int),
+    "ssd_scan_launch": ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 3, ctypes.c_int),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+
+
+def launch_config(b: int, h: int, p: int, n: int, q: int) -> tuple:
+    """((grid x, y, z), threads, dynamic shared bytes) of the bf16 kernel for
+    batch ``b``, ``h`` heads of ``p`` columns, state ``n`` and chunk ``q``:
+    one block per (column slice, head, batch row). The shared memory holds
+    the C tile, two B and two x tiles of ``TILE`` rows padded by 8 values,
+    the state's hi and lo bf16 copies, and three f32 values a step of the
+    chunk (cum, dt and the state update's factor).
+    Raises ValueError on a shape the kernel does not take."""
+    if not (0 < n <= MAX_STATE and n % 16 == 0 and 0 < p <= MAX_HEAD_DIM and p % 16 == 0
+            and q > 0 and q % 16 == 0):
+        raise ValueError(f"the bf16 SSD kernel takes state and head dim multiples of 16, at "
+                         f"most {MAX_STATE} and {MAX_HEAD_DIM}, and a chunk that is a multiple "
+                         f"of 16; got state {n}, head dim {p}, chunk {q}")
+    pblk = next(c for c in (PBLK, 32, 16) if p % c == 0)
+    smem = 2 * (3 * TILE * (n + 8) + 2 * TILE * (pblk + 8) + 2 * n * (pblk + 8)) + 12 * q
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"chunk {q} needs {smem} bytes of shared memory, over {SMEM_LIMIT}")
+    return (p // pblk, h, b), THREADS, smem
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (the kernels copy 16 bytes at a time)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def ssd_scan_cuda(x: torch.Tensor, dtA: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
@@ -42,18 +77,20 @@ def ssd_scan_cuda(x: torch.Tensor, dtA: torch.Tensor, dt: torch.Tensor, B_: torc
     q = min(chunk, s)
     if q <= 0 or s % q:
         raise ValueError(f"sequence {s} is not a multiple of the chunk {q}")
-    if not (0 < n <= MAX_STATE and n % 4 == 0 and 0 < p <= MAX_HEAD_DIM and p % 4 == 0):
-        raise ValueError(f"state {n} and head dim {p} must be multiples of 4, at most "
-                         f"{MAX_STATE} and {MAX_HEAD_DIM}")
     if x.dtype not in _DTYPE_CODE or B_.dtype != x.dtype or C_.dtype != x.dtype:
         raise TypeError(f"x, B and C must share float32 or bfloat16, got {x.dtype}, "
                         f"{B_.dtype}, {C_.dtype}")
+    if x.dtype == torch.bfloat16:
+        launch_config(b, h, p, n, q)
+    elif not (0 < n <= MAX_STATE and n % 4 == 0 and 0 < p <= MAX_HEAD_DIM and p % 4 == 0):
+        raise ValueError(f"state {n} and head dim {p} must be multiples of 4, at most "
+                         f"{MAX_STATE} and {MAX_HEAD_DIM}")
     for name, t in (("x", x), ("dtA", dtA), ("dt", dt), ("B", B_), ("C", C_)):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"{name} must be a CUDA tensor on {x.device}, got {t.device}")
         if t.requires_grad and torch.is_grad_enabled():
             raise RuntimeError(f"the SSD kernel has no backward; {name} requires grad")
-    x, B_, C_ = x.contiguous(), B_.contiguous(), C_.contiguous()
+    x, B_, C_ = _aligned(x), _aligned(B_), _aligned(C_)
     dtA = dtA.to(torch.float32).contiguous()
     dt = dt.to(torch.float32).contiguous()
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)

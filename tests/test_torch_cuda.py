@@ -245,6 +245,98 @@ def test_cuda_ssd_scan_matches_plain(card, dtype, b, s, h, p, n, chunk):
     torch.testing.assert_close(st, ste, atol=2e-3, rtol=2e-3)
 
 
+def _ssd_case(card, dt, b, s, h, p, n, a_log, dta_scale=1.0):
+    """Inputs made with numpy from fixed seeds; the decay rate is
+    ``-exp(a_log)`` per head, so ``a_log`` -4 decays slowly."""
+    x = torch.from_numpy(_normal((b, s, h, p), 20)).to(card, dt)
+    dts = torch.nn.functional.softplus(torch.from_numpy(_normal((b, s, h), 21))).to(card)
+    a = -torch.exp(torch.from_numpy(np.asarray(a_log, np.float32)
+                                    + _normal((h,), 22, 0.1))).to(card)
+    B_ = torch.from_numpy(_normal((b, s, n), 23, 0.3)).to(card, dt)
+    C_ = torch.from_numpy(_normal((b, s, n), 24, 0.3)).to(card, dt)
+    return x, dts * a * dta_scale, dts, B_, C_
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("what,b,s,h,p,n,chunk,a_log,dta_scale", [
+    # exp(-4): the decay carries across a whole chunk and y grows well above
+    # 1, so a G' or state rounded to one bf16 would miss the tolerance.
+    ("slow decay", 2, 512, 4, 64, 128, 256, -4.0, 1.0),
+    ("slow decay, 3 chunks", 1, 768, 2, 64, 128, 256, -4.0, 1.0),
+    # dtA x 200: exp(cum_i - cum_j) above the diagonal overflows to inf.
+    ("overflow", 1, 128, 2, 32, 64, 64, 0.0, 200.0),
+    ("overflow, 4 chunks", 1, 256, 3, 64, 128, 64, 0.0, 200.0),
+    # The state carried through registers three times.
+    ("4 chunks", 2, 512, 3, 32, 64, 128, 0.0, 1.0),
+    ("8 chunks, N 16", 1, 128, 4, 16, 16, 16, -2.0, 1.0),
+    ("smoke shape, H 3", 2, 48, 3, 16, 16, 16, 0.0, 1.0),
+    ("P 48, N 48, chunk 48", 1, 144, 2, 48, 48, 48, -1.0, 1.0),
+])
+def test_cuda_ssd_scan_hard_cases(card, dtype, what, b, s, h, p, n, chunk, a_log, dta_scale):
+    args = _ssd_case(card, _TORCH[dtype], b, s, h, p, n, a_log, dta_scale)
+    y, st = tsk.ssd_scan_cuda(*args, chunk=chunk)
+    ye, ste = tref.ssd_chunked(*args, chunk=chunk)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    if what.startswith("slow decay"):
+        assert float(ye.abs().max()) > 10.0
+    torch.testing.assert_close(y, ye, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(st, ste, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_launch_config_matches_the_kernel(card):
+    import ctypes
+    lib = _build.load("ssd_scan", tsk._SIGNATURES)
+    for b, h, p, n, q in [(4, 64, 64, 128, 256), (2, 3, 16, 16, 16), (1, 4, 32, 64, 64),
+                          (2, 8, 48, 128, 128), (1, 2, 64, 16, 4096)]:
+        grid = (ctypes.c_int * 3)()
+        threads, smem = ctypes.c_int(), ctypes.c_int()
+        assert lib.ssd_scan_launch(b, h, n, p, q, grid, ctypes.byref(threads),
+                                   ctypes.byref(smem)) == 0
+        assert ((tuple(grid), threads.value, smem.value)
+                == tsk.launch_config(b, h, p, n, q))
+    for b, h, p, n, q in [(1, 1, 64, 120, 64), (1, 1, 40, 64, 64), (1, 1, 64, 64, 40),
+                          (1, 1, 80, 64, 64), (1, 1, 64, 144, 64), (1, 1, 64, 128, 16384)]:
+        grid = (ctypes.c_int * 3)()
+        threads, smem = ctypes.c_int(), ctypes.c_int()
+        assert lib.ssd_scan_launch(b, h, n, p, q, grid, ctypes.byref(threads),
+                                   ctypes.byref(smem)) != 0
+        with pytest.raises(ValueError):
+            tsk.launch_config(b, h, p, n, q)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_f32_takes_multiples_of_4_where_bf16_refuses(card):
+    """Head dim 24 and chunk 40: the bf16 kernel raises, the f32 kernel runs."""
+    x, dta, dts, B_, C_ = _ssd_case(card, torch.float32, 1, 80, 2, 24, 16, 0.0)
+    bf = torch.bfloat16
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tsk.ssd_scan_cuda(x.to(bf), dta, dts, B_.to(bf), C_.to(bf), chunk=40)
+    y, st = tsk.ssd_scan_cuda(x, dta, dts, B_, C_, chunk=40)
+    ye, ste = tref.ssd_chunked(x, dta, dts, B_, C_, chunk=40)
+    torch.testing.assert_close(y, ye, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(st, ste, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_scan_takes_unaligned_views(card, dtype):
+    """Views that start 2 elements into their storage: the kernels copy 16
+    bytes at a time, so the wrapper hands them aligned copies."""
+    args = _ssd_case(card, _TORCH[dtype], 1, 128, 2, 32, 64, -1.0)
+    views = []
+    for t in args:
+        flat = torch.empty(t.numel() + 2, dtype=t.dtype, device=card)
+        flat[2:] = t.reshape(-1)
+        views.append(flat[2:].view(t.shape))
+    assert views[0].data_ptr() % 16
+    y, st = tsk.ssd_scan_cuda(*views, chunk=64)
+    ye, ste = tref.ssd_chunked(*args, chunk=64)
+    torch.testing.assert_close(y, ye, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(st, ste, atol=2e-3, rtol=2e-3)
+
+
 @pytest.mark.cuda
 def test_cuda_serving_kernels_count_launches_and_refuse_bad_input(card):
     tops.reset_launch_counts()

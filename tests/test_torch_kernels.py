@@ -291,6 +291,111 @@ def test_flash_tile_config_fits_the_card(hd):
 # ---------------------------------------------------------------------------
 # SSD scan
 # ---------------------------------------------------------------------------
+_SSD_LAUNCH_SHAPES = [
+    # b, h, p, n, chunk
+    (4, 64, 64, 128, 256),   # mamba2-1.3b's prefill
+    (2, 3, 16, 16, 16),      # the smoke model's widths
+    (1, 4, 32, 64, 64),
+    (2, 8, 48, 128, 128),    # P 48: slices of 16
+    (1, 2, 64, 16, 4096),
+]
+
+
+@pytest.mark.parametrize("b,h,p,n,q", _SSD_LAUNCH_SHAPES)
+def test_ssd_launch_config_fits_the_card(b, h, p, n, q):
+    """One block of four warps per (column slice, head, batch row); the slices
+    cover every column of every head once; the tiles fit in a block's shared
+    memory, and at the path's shape two blocks fit on an SM."""
+    (gx, gy, gz), threads, smem = tsk.launch_config(b, h, p, n, q)
+    assert (gy, gz, threads) == (h, b, 128) and tsk.TILE == 64
+    pblk = p // gx
+    assert pblk * gx == p and pblk in (16, 32, 64) and pblk <= tsk.PBLK
+    covered = np.zeros((b, h, p), np.int64)
+    for z in range(gz):
+        for y in range(gy):
+            for x in range(gx):
+                covered[z, y, x * pblk:(x + 1) * pblk] += 1
+    assert (covered == 1).all()
+    assert smem <= tsk.SMEM_LIMIT == 232_448
+    # C, two B and two x tiles of 64 rows, the state's hi and lo, and three
+    # f32 values a step (cum, dt, the state update's factor).
+    assert smem >= 2 * (3 * 64 * n + 2 * 64 * pblk + 2 * n * pblk) + 12 * q
+    if (b, h, p, n, q) == (4, 64, 64, 128, 256):
+        assert 2 * (smem + 1024) <= 228 * 1024    # 1 KB of each block is the system's
+        assert gx * gy * gz == 256
+
+
+@pytest.mark.parametrize("p,n,q", [(64, 120, 64), (40, 64, 64), (64, 64, 40), (80, 64, 64),
+                                   (64, 144, 64), (64, 128, 16384), (0, 64, 64), (64, 0, 64)])
+def test_ssd_launch_config_raises_on_refused_shapes(p, n, q):
+    with pytest.raises(ValueError):
+        tsk.launch_config(1, 1, p, n, q)
+
+
+def test_ssd_bf16_wrapper_refuses_shapes_off_16():
+    """The bf16 kernel's shape check comes before the device check, so it
+    shows here on CPU tensors; the f32 kernel takes multiples of 4."""
+    x = torch.zeros(1, 64, 2, 24, dtype=torch.bfloat16)
+    bc = torch.zeros(1, 64, 16, dtype=torch.bfloat16)
+    dts = torch.zeros(1, 64, 2)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tsk.ssd_scan_cuda(x, dts, dts, bc, bc, chunk=64)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tsk.ssd_scan_cuda(x[..., :16], dts, dts, bc, bc, chunk=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsk.ssd_scan_cuda(x.float(), dts, dts, bc.float(), bc.float(), chunk=64)
+
+
+def _ssd_rounded(x, dtA, dt, B_, C_, chunk, split):
+    """The bf16 kernel's arithmetic in f32 on the CPU: the three f32 operands
+    of its products (G', the state, x') rounded to bf16, as hi + lo halves
+    (``split``) or as one bf16."""
+    def rnd(t):
+        hi = t.to(torch.bfloat16).float()
+        return hi + (t - hi).to(torch.bfloat16).float() if split else hi
+    b, s, h, p = x.shape
+    q = chunk
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool))
+    state = torch.zeros((b, h, B_.shape[-1], p))
+    ys = []
+    for s0 in range(0, s, q):
+        xk, dk = x[:, s0:s0 + q].float(), dt[:, s0:s0 + q].float()
+        bk, ck = B_[:, s0:s0 + q].float(), C_[:, s0:s0 + q].float()
+        cum = torch.cumsum(dtA[:, s0:s0 + q].float(), dim=1)                  # (B, Q, H)
+        decay = torch.where(tri[None, :, :, None],
+                            torch.exp(cum[:, :, None, :] - cum[:, None, :, :]), 0.0)
+        g = torch.einsum("bqn,bkn->bqk", ck, bk)[..., None] * decay * dk[:, None]
+        y = torch.einsum("bqkh,bkhp->bqhp", rnd(g), xk)
+        y = y + torch.einsum("bqn,bhnp->bqhp", ck, rnd(state)) * torch.exp(cum)[..., None]
+        xs = xk * (torch.exp(cum[:, -1:] - cum) * dk)[..., None]
+        state = state * torch.exp(cum[:, -1])[:, :, None, None] \
+            + torch.einsum("bqn,bqhp->bhnp", bk, rnd(xs))
+        ys.append(y)
+    return torch.cat(ys, dim=1), state
+
+
+@pytest.mark.parametrize("split", [True, False])
+def test_ssd_slow_decay_needs_split_bf16_operands(split):
+    """The card tests' slow-decay case (decay rate exp(-4), two chunks of 256,
+    N 128) holds the split operands to the SSD tolerance, and catches one
+    bf16 in their place."""
+    rng = np.random.default_rng(20)
+    b, s, h, p, n = 1, 512, 2, 64, 128
+    x = torch.from_numpy(rng.standard_normal((b, s, h, p)).astype(np.float32))
+    x = x.to(torch.bfloat16).float()
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((b, s, h)).astype(np.float32)))
+    a = -torch.exp(torch.full((h,), -4.0))
+    B_, C_ = (torch.from_numpy((rng.standard_normal((b, s, n)) * 0.3).astype(np.float32))
+              .to(torch.bfloat16).float() for _ in range(2))
+    ye, ste = tref.ssd_chunked(x, dt * a, dt, B_, C_, chunk=256)
+    assert float(ye.abs().max()) > 10.0
+    y, st = _ssd_rounded(x, dt * a, dt, B_, C_, 256, split)
+    close = all(torch.allclose(got, want, atol=2e-3, rtol=2e-3)
+                for got, want in ((y, ye), (st, ste)))
+    assert close == split
+
+
 def _ssd_inputs(b, s, h, p, n, seed=50):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((b, s, h, p)).astype(np.float32)
