@@ -14,12 +14,15 @@ version on the card, then drives the port's two paths at full width:
   COS-batch microbatches and int8-quantizes the boundary, the wire bytes are
   counted, and the compute tier dequantizes and evaluates the 10-block
   suffix's loss without gradients.
-* Serving (``repro_torch.launch.serve.serve``): two-block mistral-nemo-12b
-  and two-layer mamba2-1.3b prefill and decode steps agree between the card
-  and the CPU, then the full mistral-nemo-12b (40 blocks) and mamba2-1.3b
-  (48 layers) each prefill 4 prompts of 512 tokens, refill the cache by
-  teacher forcing and decode 32 tokens greedily, with exact launch counts
-  and the prefill's logits held to the last teacher-forced step's.
+* Serving (``repro_torch.launch.serve.serve``): at its defaults (the f32
+  smoke configs, head dim 16) for mistral-nemo-12b, gemma2-9b, qwen3-32b and
+  mamba2-1.3b, the card's prefill logits and greedy tokens match the CPU's;
+  two-block mistral-nemo-12b and two-layer mamba2-1.3b (prompts of 512, 100
+  and 8 tokens) prefill and decode steps agree between the card and the CPU,
+  then the full mistral-nemo-12b (40 blocks) and mamba2-1.3b (48 layers) each
+  prefill 4 prompts of 512 tokens, refill the cache by teacher forcing and
+  decode 32 tokens greedily, with exact launch counts and the prefill's
+  logits held to the last teacher-forced step's.
 
 Weights are random, from seeded ``torch.Generator``s. Exits non-zero on any
 failure, and without a GPU. Its last lines are the card's name and power
@@ -46,12 +49,14 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.config import HW, HapiConfig, ShapeConfig  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.tier_split import (  # noqa: E402
     make_extract_fn, make_tune_loss_fn, plan_tiers, wire_bytes)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import int8_transfer  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.int8_cases import INT8_ADVERSARIAL, int8_adversarial  # noqa: E402
 from repro_torch.kernels.int8_transfer import (  # noqa: E402
     dequantize_int8_cuda, quantize_int8_cuda)
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
@@ -69,6 +74,12 @@ SSD_TOL = 2e-3           # tests/test_kernels.py's SSD tolerance
 # of the SSM states. Both devices round to bf16 at the same places, so only
 # summation order and the kernels' algorithms differ.
 SERVE_AGREE_TOL = 2e-2
+# Card vs CPU of serve() at its defaults (f32 smoke configs, the same seeded
+# weights on both): relative L2 of the prefill's logits. Both sides compute in
+# f32 (no TF32), so only summation order and the kernels' algorithms differ:
+# about 1e-6; a wrong mask or position decorrelates the logits (near 1).
+SMOKE_SERVE_TOL = 1e-4
+SMOKE_ARCHS = ("mistral-nemo-12b", "gemma2-9b", "qwen3-32b", "mamba2-1.3b")
 # The prefill's last logits against the last teacher-forced step's, at full
 # depth in bf16 (relative L2 over the real vocabulary). The two paths round
 # differently: flash vs decode kernel (dense), and for mamba2 the prefill
@@ -197,20 +208,43 @@ def environment() -> str:
 # ---------------------------------------------------------------------------
 # Phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
+def int8_exact(x: torch.Tensor, what: str) -> str:
+    """Quantize x with the kernel, hold q, the scales and both dequantizes
+    to the plain versions bit for bit; returns the route it took."""
+    before = dict(int8_transfer.quantize_routes)
+    q, s = quantize_int8_cuda(x)
+    qe, se = ref.quantize_int8(x)
+    check(torch.equal(q, qe) and torch.equal(s, se), f"quantize_int8 not bit-exact at {what}")
+    for out_dt in (torch.bfloat16, torch.float32):
+        check(torch.equal(dequantize_int8_cuda(q, s, out_dt), ref.dequantize_int8(qe, se, out_dt)),
+              f"dequantize_int8 not exact at {what} -> {out_dt}")
+    return next(r for r, n in int8_transfer.quantize_routes.items() if n > before[r])
+
+
 def check_int8() -> dict:
-    for shape in [(2, 4096, 5120), (3, 1001, 5120), (7, 333, 80), (5, 97), (1, 1, 5120)]:
-        for dt in (torch.bfloat16, torch.float32):
+    # shape, the route it must take: tiles of 128 (16 or 32 lanes a tile), 16,
+    # 8 and 4, ragged rows, D = 97 (tile 1) and tile 4 in bf16 on the scalar route.
+    cases = [((2, 4096, 5120), "vector", "vector"), ((3, 1001, 5120), "vector", "vector"),
+             ((7, 333, 80), "vector", "vector"), ((37, 8), "vector", "vector"),
+             ((37, 12), "scalar", "vector"), ((5, 97), "scalar", "scalar"),
+             ((1, 1, 5120), "vector", "vector")]
+    for shape, bf16_route, f32_route in cases:
+        for dt, want in ((torch.bfloat16, bf16_route), (torch.float32, f32_route)):
             x = randn(shape, dt, seed=shape[-1]) * 3
-            q, s = quantize_int8_cuda(x)
-            qe, se = ref.quantize_int8(x)
-            check(torch.equal(q, qe) and torch.equal(s, se),
-                  f"quantize_int8 not bit-exact at {shape} {dt}")
-            for out_dt in (torch.bfloat16, torch.float32):
-                check(torch.equal(dequantize_int8_cuda(q, s, out_dt),
-                                  ref.dequantize_int8(qe, se, out_dt)),
-                      f"dequantize_int8 not exact at {shape} {dt}->{out_dt}")
-    log("int8: q, scales and dequantize bit-exact with the plain versions "
-        "(D=5120 and D=80/tile 16 and D=97/tile 1, ragged rows, bf16 and f32)")
+            route = int8_exact(x, f"{shape} {dt}")
+            check(route == want, f"quantize_int8 at {shape} {dt} took the {route} route")
+    for case in INT8_ADVERSARIAL:
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.from_numpy(int8_adversarial(case)).to("cuda", dt)
+            check(int8_exact(x, f"{case} {dt}") == "vector", f"{case}: not the vector route")
+    for dt in (torch.bfloat16, torch.float32):
+        buf = randn((300 * 5120 + 1,), dt, seed=3) * 3
+        view = buf[1:].view(300, 5120)   # 2 or 4 bytes off 16-byte alignment
+        check(int8_exact(view, f"unaligned view {dt}") == "scalar", "unaligned view: route")
+    log("int8: q, scales and dequantize bit-exact with the plain versions on every route "
+        "(vector: D=5120, 80, 8, 12 in f32, ragged rows; scalar: D=97, 12 in bf16, a view "
+        "off 16-byte alignment; bf16 and f32) and on adversarial inputs "
+        f"({', '.join(INT8_ADVERSARIAL)}), routes {int8_transfer.quantize_routes}")
 
     # Times at the path's shapes: the storage tier quantizes one (2, 4096, 5120)
     # bf16 microbatch, the compute tier dequantizes (4, 4096, 5120) into bf16.
@@ -249,6 +283,10 @@ FLASH_CASES = [
     (1, 200, 4, 1, 128, True, 50, 30.0, torch.float32, F32_TOL),
     (1, 129, 2, 2, 256, False, None, None, torch.float32, F32_TOL),
     (1, 100, 4, 4, 64, False, 10, None, torch.float32, F32_TOL),
+    (4, 32, 4, 2, 16, True, None, None, torch.float32, F32_TOL),        # the smoke configs
+    (4, 300, 4, 2, 16, True, 16, 50.0, torch.float32, F32_TOL),         # gemma2 smoke, local
+    (2, 257, 8, 2, 32, True, None, None, torch.float32, F32_TOL),
+    (1, 190, 4, 4, 32, False, 30, None, torch.float32, F32_TOL),
 ]
 
 
@@ -306,7 +344,7 @@ def check_flash() -> dict:
 
 
 DECODE_CASES = [
-    # b, s, hq, hkv, hd, length, window, softcap, dtype
+    # b, s, hq, hkv, hd, length(s), window, softcap, dtype (q's, where it differs: q, cache)
     (2, 1024, 8, 2, 64, 700, None, None, torch.float32),     # tests/test_kernels.py
     (2, 768, 16, 8, 64, 100, None, None, torch.bfloat16),
     (1, 300, 8, 8, 64, 300, None, None, torch.float32),
@@ -315,6 +353,15 @@ DECODE_CASES = [
     (1, 4096, 16, 8, 256, 3000, 1024, 50.0, torch.bfloat16),  # gemma2 local layer
     (2, 100, 4, 4, 64, 90, 0, None, torch.float32),          # window 0
     (4, 544, 32, 8, 128, 544, None, None, torch.float32),
+    # the smoke models' decode: an f32 q against the bf16 cache
+    (4, 48, 4, 2, 16, (1, 17, 48), None, None, (torch.float32, torch.bfloat16)),
+    (4, 48, 4, 2, 16, 48, None, None, torch.bfloat16),
+    (4, 48, 4, 2, 16, 33, 16, 50.0, torch.float32),
+    (2, 700, 12, 2, 32, 650, None, None, torch.float32),     # group 6, a cluster
+    (1, 20000, 6, 1, 16, 19000, None, None, torch.float32),  # group 6, scratch, hd 16
+    (2, 20000, 16, 2, 16, 19000, None, None, torch.bfloat16),  # group 8, scratch, hd 16
+    (4, 544, 48, 8, 128, 544, None, None, torch.bfloat16),   # grok-1's group of 6
+    (2, 4096, 48, 8, 128, 3000, None, 30.0, torch.bfloat16),
 ]
 DECODE_SHAPES = {"path": (4, 544, 544), "long": (4, 32768, 32768)}   # b, cache, length
 
@@ -327,17 +374,20 @@ def decode_bound(b, hq, hkv, hd, length, itemsize):
 
 
 def check_decode() -> dict:
-    for b, s, hq, hkv, hd, length, window, cap, dt in DECODE_CASES:
-        q = randn((b, hq, hd), dt, seed=4)
+    for b, s, hq, hkv, hd, lengths, window, cap, dt in DECODE_CASES:
+        qdt, dt = dt if isinstance(dt, tuple) else (dt, dt)
+        q = randn((b, hq, hd), qdt, seed=4)
         k = randn((b, s, hkv, hd), dt, seed=5)
         v = randn((b, s, hkv, hd), dt, seed=6)
-        out = decode_attention_cuda(q, k, v, length, window=window, softcap=cap)
-        exp = ref.decode_attention(q, k, v, length, window=window, softcap=cap)
         tol = F32_TOL if dt == torch.float32 else DECODE_BF16_TOL
-        err = float((out.float() - exp.float()).abs().max())
-        torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
-        log(f"decode B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} length={length} window={window} "
-            f"softcap={cap} {str(dt)[6:]}: max abs err {err:.3g} (tol {tol:g})")
+        for length in lengths if isinstance(lengths, tuple) else (lengths,):
+            out = decode_attention_cuda(q, k, v, length, window=window, softcap=cap)
+            exp = ref.decode_attention(q, k, v, length, window=window, softcap=cap)
+            err = float((out.float() - exp.float()).abs().max())
+            torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
+            log(f"decode B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} length={length} "
+                f"window={window} softcap={cap} q {str(qdt)[6:]} cache {str(dt)[6:]}: "
+                f"max abs err {err:.3g} (tol {tol:g})")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
     for name, (b, s, length) in DECODE_SHAPES.items():
@@ -378,8 +428,14 @@ SSD_CASES = [
     (2, 128, 8, 64, 128, 128, torch.float32),
     (2, 48, 3, 16, 16, 16, torch.float32),       # the smoke model's widths
     (2, 48, 3, 16, 16, 16, torch.bfloat16),
+    (4, 32, 8, 16, 16, 16, torch.float32),       # the smoke mamba2's prefill in serve()
     (2, 768, 4, 64, 128, 256, torch.bfloat16),   # slow decay (rate exp(-4)), 3 chunks
     (4, 512, 64, 64, 128, 256, torch.bfloat16),  # the path's shape
+    (4, 8, 64, 64, 128, 256, torch.bfloat16),    # short prompts: chunks padded to 16
+    (4, 100, 64, 64, 128, 256, torch.bfloat16),
+    (2, 250, 8, 64, 128, 256, torch.bfloat16),
+    (2, 64, 8, 64, 128, 8, torch.bfloat16),      # a chunk of 8
+    (2, 100, 8, 64, 128, 256, torch.float32),
 ]
 SLOW_DECAY = (2, 768, 4, 64, 128, 256)
 
@@ -496,7 +552,8 @@ def serving_outputs(lm, toks: torch.Tensor, prompt: int, steps: int) -> dict:
 
 
 def check_full_width_serving() -> None:
-    for arch, prompt in (("mistral-nemo-12b", 512), ("mamba2-1.3b", 512)):
+    for arch, prompt in (("mistral-nemo-12b", 512), ("mamba2-1.3b", 512),
+                         ("mamba2-1.3b", 100), ("mamba2-1.3b", 8)):
         cfg = dataclasses.replace(get_config(arch), n_layers=2)
         lm_gpu = build_model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(2))
         lm_cpu = copy.deepcopy(lm_gpu).cpu()
@@ -521,6 +578,74 @@ def check_full_width_serving() -> None:
                 check(err <= SERVE_AGREE_TOL, f"{arch} {name}: card and CPU disagree")
         del lm_gpu, lm_cpu, outs
         free()
+
+
+def greedy_shortfall(arch: str, card: dict, teacher_logits: torch.Tensor) -> float:
+    """The card's prompt and greedy tokens fed through the CPU model, which
+    serve() draws first from its seed (0) on the CPU: at each greedy step,
+    how far the chosen token's CPU logit falls short of that step's CPU
+    maximum, over the largest |logit|; the largest such shortfall. 0 where
+    every card token is the CPU's argmax. Checks first that the rebuilt model
+    gives the CPU run's last teacher-forced logits."""
+    lm = build_model(get_smoke_config(arch), device="cpu",
+                     generator=torch.Generator().manual_seed(0))
+    seq = torch.from_numpy(np.concatenate([card["prompt"], card["tokens"]], axis=1)).long()
+    b, prompt = card["prompt"].shape
+    steps = seq.shape[1] - 1
+    step, cache = build_decode_step(lm), lm.init_cache(b, steps)
+    worst = 0.0
+    for t in range(steps):
+        logits, cache = step(cache, seq[:, t:t + 1], t)
+        if t == prompt - 1:
+            check(torch.equal(logits, teacher_logits), f"{arch}: the rebuilt CPU model differs")
+        if t >= prompt - 1:
+            row = logits[:, -1].double()
+            chosen = row.gather(-1, seq[:, t + 1:t + 2])[:, 0]
+            worst = max(worst, float(((row.max(-1).values - chosen)
+                                      / row.abs().max(-1).values).max()))
+    return worst
+
+
+def serve_defaults() -> None:
+    """serve() at its defaults (the smoke config: f32, head dim 16, batch 4,
+    prompt 32, 16 new tokens, seed 0) on the card and on the CPU: the same
+    weights, so the prefill's logits agree to SMOKE_SERVE_TOL. Decode reads
+    the bf16 cache and casts P to bf16 on both, so a step's logits agree to
+    SERVE_AGREE_TOL, and a near tie may pick another token: the card's greedy
+    tokens are held to the CPU model fed those same tokens, each within
+    SERVE_AGREE_TOL of that step's CPU maximum (the CPU's argmax where the
+    tokens are equal). The launches of each card run are counted from 0: a
+    flash launch per attention layer, a decode launch per attention layer and
+    step, an SSD launch per mamba layer."""
+    for arch in SMOKE_ARCHS:
+        ops.reset_launch_counts()
+        card = serve(arch)
+        counts = ops.launch_counts()
+        cpu = serve(arch, device="cpu")
+        v = get_smoke_config(arch).vocab_size
+        err = rel_err(card["prefill_logits"][..., :v], cpu["prefill_logits"][..., :v])
+        tf_err = rel_err(card["teacher_logits"][..., :v], cpu["teacher_logits"][..., :v])
+        check(np.array_equal(card["prompt"], cpu["prompt"]), f"{arch}: prompts differ")
+        same = float((card["tokens"] == cpu["tokens"]).mean())
+        short = greedy_shortfall(arch, card, cpu["teacher_logits"])
+        log(f"serve {arch} at its defaults (smoke config, f32, hd 16), card vs cpu: prefill "
+            f"logits relative L2 {err:.3g} (tol {SMOKE_SERVE_TOL:g}), last teacher-forced "
+            f"{tf_err:.3g} (tol {SERVE_AGREE_TOL:g}), greedy tokens equal in {same:.3f} of "
+            f"places, card tokens' shortfall from the CPU's argmax {short:.3g} (tol "
+            f"{SERVE_AGREE_TOL:g}), card {card['tokens'][0, :8].tolist()}, cpu "
+            f"{cpu['tokens'][0, :8].tolist()}, launches {counts}")
+        check(bool(torch.isfinite(card["prefill_logits"]).all()), f"{arch}: logits not finite")
+        check(err <= SMOKE_SERVE_TOL, f"{arch}: card and CPU prefill logits disagree")
+        check(tf_err <= SERVE_AGREE_TOL, f"{arch}: card and CPU teacher-forced logits disagree")
+        check(short <= SERVE_AGREE_TOL, f"{arch}: a card token is not the CPU's greedy choice")
+        check(same == 1.0 or short > 0, f"{arch}: tokens differ where the CPU agrees")
+        if arch == "mamba2-1.3b":
+            check(counts["ssd_scan"] > 0 and counts["flash_attention"] == 0, f"{arch}: launches")
+        else:
+            steps = card["prompt"].shape[1] + card["tokens"].shape[1] - 1
+            check(counts["flash_attention"] > 0
+                  and counts["decode_attention"] == counts["flash_attention"] * steps,
+                  f"{arch}: launches {counts}")
 
 
 # ---------------------------------------------------------------------------
@@ -574,7 +699,9 @@ def serve_slice() -> dict:
         check(math.isfinite(loss) and abs(loss - math.log(cfg.vocab_size)) < 3.0,
               f"loss {loss} is not near ln(vocab)")
         check(rose == per_request, f"launches rose by {rose}, expected {per_request}")
-    log(f"peak device memory {torch.cuda.max_memory_allocated()} bytes")
+    routes = dict(int8_transfer.quantize_routes)
+    log(f"peak device memory {torch.cuda.max_memory_allocated()} bytes; quantize routes {routes}")
+    check(routes == {"vector": N_REQUESTS * 2, "scalar": 0}, f"quantize routes {routes}")
     return ops.launch_counts()
 
 
@@ -630,6 +757,7 @@ def main() -> int:
     kernels = {**check_flash(), **check_int8(), **check_decode(), **check_ssd()}
     check_full_width()
     check_full_width_serving()
+    serve_defaults()
     pushdown = serve_slice()
     free()
     served = serve_models()

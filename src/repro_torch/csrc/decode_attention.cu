@@ -34,7 +34,8 @@
 //   version of this kernel was bound by its instruction issue, not by bytes.
 // - f32 caches: 8 warps (4 at hd 256), 8 keys a warp in each stage, FMA:
 //   eight lanes score one key against all rep heads, then each lane adds P.V
-//   for hd/32 output dimensions from the staged V rows.
+//   for hd/32 output dimensions from the staged V rows (at hd 16, lanes 0-15
+//   one dimension each, and the other half of the warp idles in P.V).
 // The softmax runs in base 2, and the soft-cap is a template argument, so the
 // common path carries no tanh. The warps' (m, l, acc) combine in shared
 // memory, and a pair's splits in the same launch: for short splits through
@@ -45,8 +46,10 @@
 // C interface: decode_attention_fwd returns cudaGetLastError() after its one
 // launch. dtype codes (of the caches and the output): 0 = float32,
 // 1 = bfloat16; q_f32 is 1 where q is float32 and the caches are not.
-// head_dim 64, 128 or 256; rep 1, 2, 4 or 8. Null counters: the splits (at
-// most 8) combine in a cluster, and the scratch is not used. Otherwise the
+// head_dim 16, 64, 128 or 256, and 32 on f32 caches only (16 is the f32 smoke
+// configs', whose model decodes an f32 q against the bf16 cache; no config
+// decodes a bf16 cache at 32); rep 1, 2, 4, 6 or 8. Null counters: the splits
+// (at most 8) combine in a cluster, and the scratch is not used. Otherwise the
 // counters must be 0 on entry, and calls that share them are ordered on one
 // stream.
 
@@ -86,7 +89,9 @@ struct Params {
 // N consecutive floats from 8- or 16-byte aligned memory, in vectors.
 template <int N>
 __device__ __forceinline__ void load_floats(const float* src, float (&dst)[N]) {
-  if constexpr (N == 2) {
+  if constexpr (N == 1) {
+    dst[0] = *src;
+  } else if constexpr (N == 2) {
     const float2 t = *reinterpret_cast<const float2*>(src);
     dst[0] = t.x;
     dst[1] = t.y;
@@ -278,7 +283,8 @@ __global__ void __launch_bounds__(Ring<HD>::kThreads) decode_fma(const Params p)
   constexpr int kWarps = R::kWarps, kThreads = R::kThreads, kTile = R::kTile;
   constexpr int kVec = 4;               // floats per 16-byte chunk
   constexpr int kChunks = HD / kVec;    // chunks in a row
-  constexpr int kVpl = HD / 32;         // output dims per lane
+  constexpr int kVpl = HD >= 32 ? HD / 32 : 1;  // output dims per lane
+  constexpr int kLanes = HD / kVpl;     // lanes that own output dims: 32, or HD below 32
   static_assert((kWarps + 1) * REP * (HD + 2) * sizeof(float) <= R::kBytes, "combine area");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);  // (REP, HD) f32
@@ -336,7 +342,8 @@ __global__ void __launch_bounds__(Ring<HD>::kThreads) decode_fma(const Params p)
     const unsigned char* st = ring + (t % R::kStages) * R::kStage;
     const int key0 = k0 + t * kTile + warp * kWarpKeys;  // this warp's first key
     // Lane group grp scores keys key0 + grp and key0 + 4 + grp; lane part of
-    // the group takes the row's chunks part, part + 8, ...
+    // the group takes the row's chunks part, part + 8, ... (at hd 16 a row has
+    // 4 chunks, and parts 4-7 add nothing).
     float s[2][REP];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -346,8 +353,9 @@ __global__ void __launch_bounds__(Ring<HD>::kThreads) decode_fma(const Params p)
 #pragma unroll
       for (int r = 0; r < REP; ++r) d[r] = 0.f;
 #pragma unroll
-      for (int cc = 0; cc < kChunks / 8; ++cc) {
+      for (int cc = 0; cc < (kChunks + 7) / 8; ++cc) {
         const int c = cc * 8 + part;
+        if (kChunks % 8 != 0 && c >= kChunks) break;
         float kf[kVec];
         load_floats<kVec>(krow + c * kVec, kf);
 #pragma unroll
@@ -381,13 +389,15 @@ __global__ void __launch_bounds__(Ring<HD>::kThreads) decode_fma(const Params p)
       for (int e = 0; e < kVpl; ++e) acc[r][e] *= al;
     }
 
-    // acc += P V over the warp's 8 keys: lane owns dims [lane * kVpl, +kVpl).
+    // acc += P V over the warp's 8 keys: lane owns dims [lane * kVpl, +kVpl);
+    // below hd 32 the lanes past kLanes shadow an owner's dims and are never
+    // written out.
 #pragma unroll
     for (int j = 0; j < kWarpKeys; ++j) {
       float vf[kVpl];
       load_floats<kVpl>(
           reinterpret_cast<const float*>(st + (kTile + warp * kWarpKeys + j) * R::kRow) +
-              lane * kVpl,
+              (lane % kLanes) * kVpl,
           vf);
 #pragma unroll
       for (int r = 0; r < REP; ++r) {
@@ -409,8 +419,10 @@ __global__ void __launch_bounds__(Ring<HD>::kThreads) decode_fma(const Params p)
       wml[(warp * REP + r) * 2] = m[r];
       wml[(warp * REP + r) * 2 + 1] = l[r];
     }
+    if (lane < kLanes) {
 #pragma unroll
-    for (int e = 0; e < kVpl; ++e) wacc[(warp * REP + r) * HD + lane * kVpl + e] = acc[r][e];
+      for (int e = 0; e < kVpl; ++e) wacc[(warp * REP + r) * HD + lane * kVpl + e] = acc[r][e];
+    }
   }
   __syncthreads();
 
@@ -560,6 +572,17 @@ __global__ void __launch_bounds__(kMmaWarps * 32) decode_mma(const Params p) {
 
     // S = Q K^T over the warp's 16 keys, two n-tiles of 8.
     float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    if constexpr (HD == 16) {
+      // One k-step; one ldmatrix brings both n-tiles: keys 8 nt + (0..7),
+      // dims 8 m + (0..7) as matrix 2 nt + m.
+      uint32_t kb[4];
+      ldmatrix_x4(kb, kt + (8 * (lane >> 4) + (lane & 7)) * R::kPitch + 16 * ((lane >> 3) & 1));
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        mma_rows8(sc[nt], qh[0][0], qh[0][1], kb[2 * nt], kb[2 * nt + 1]);
+        if (split_q) mma_rows8(sc[nt], ql[0][0], ql[0][1], kb[2 * nt], kb[2 * nt + 1]);
+      }
+    }
 #pragma unroll
     for (int j = 0; j < HD / 32; ++j)
 #pragma unroll
@@ -664,8 +687,12 @@ int launch(void (*kernel)(Params), size_t smem, int threads, const Params& p, in
 
 template <int HD, int REP, bool CAP>
 int by_type(bool bf16_cache, const Params& p, int B, cudaStream_t st) {
-  if (bf16_cache)
-    return launch(decode_mma<HD, REP, CAP>, mma_smem_bytes<HD, REP>(), kMmaWarps * 32, p, B, st);
+  if (bf16_cache) {
+    if constexpr (HD == 32) return static_cast<int>(cudaErrorInvalidValue);
+    else
+      return launch(decode_mma<HD, REP, CAP>, mma_smem_bytes<HD, REP>(), kMmaWarps * 32, p, B,
+                    st);
+  }
   return launch(decode_fma<HD, REP, CAP>, smem_bytes<HD, REP>(), Ring<HD>::kThreads, p, B,
                 st);
 }
@@ -682,6 +709,7 @@ int by_rep(int rep, bool bf16_cache, const Params& p, int B, cudaStream_t st) {
     case 1: return by_cap<HD, 1>(bf16_cache, p, B, st);
     case 2: return by_cap<HD, 2>(bf16_cache, p, B, st);
     case 4: return by_cap<HD, 4>(bf16_cache, p, B, st);
+    case 6: return by_cap<HD, 6>(bf16_cache, p, B, st);
     case 8: return by_cap<HD, 8>(bf16_cache, p, B, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -710,6 +738,8 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
   const int rep = Hq / Hkv;
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
+    case 16: return by_rep<16>(rep, dtype == 1, p, B, st);
+    case 32: return by_rep<32>(rep, dtype == 1, p, B, st);
     case 64: return by_rep<64>(rep, dtype == 1, p, B, st);
     case 128: return by_rep<128>(rep, dtype == 1, p, B, st);
     case 256: return by_rep<256>(rep, dtype == 1, p, B, st);

@@ -44,11 +44,11 @@
 //   lower edge or S, and carries no tanh unless the soft-cap is on (a
 //   template argument).
 // f32 inputs take a plain FMA path (32x32 tiles, 128 threads); no bf16 model
-// reaches it.
+// reaches it, the f32 smoke configs (head dim 16) do.
 //
 // C interface: flash_attention_fwd returns cudaGetLastError() after its
 // launch, or an error code without launching. dtype codes: 0 = float32,
-// 1 = bfloat16. head_dim 64, 128 or 256.
+// 1 = bfloat16. head_dim 64, 128 or 256 in bf16; also 16 and 32 in f32.
 
 #include <cuda.h>  // CUtensorMap; the encoder itself comes from the runtime
 #include <cuda_bf16.h>
@@ -760,6 +760,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     }
   } else if (dtype == 0) {
     switch (hd) {
+      case 16: return launch_f32(flash_fwd_f32<16>, smem_f32<16>(), p, st);
+      case 32: return launch_f32(flash_fwd_f32<32>, smem_f32<32>(), p, st);
       case 64: return launch_f32(flash_fwd_f32<64>, smem_f32<64>(), p, st);
       case 128: return launch_f32(flash_fwd_f32<128>, smem_f32<128>(), p, st);
       case 256: return launch_f32(flash_fwd_f32<256>, smem_f32<256>(), p, st);

@@ -19,19 +19,42 @@
 //
 // What the design does about it. Each element is read once and written once;
 // there is no padding pass (the TPU kernel padded rows to its grid, the kernels
-// here mask the ragged tail themselves). Quantize gives one warp to each
-// (row, tile): lanes read neighbouring elements, so a warp's loads coalesce, the
-// abs-max is a 5-step __shfl_xor_sync reduction in registers, and the scale
-// never leaves the warp before lane 0 stores it. Dequantize is a grid-stride
-// elementwise pass that handles four elements per thread where D allows.
+// here mask the ragged tail themselves). With D a multiple of the tile, the
+// (rows, D) array is one flat run of tiles, and tile t's scale is s[t].
+// Quantize, vector route (quantize_vec_kernel, the path's): a lane loads 16
+// bytes (8 bf16 or 4 f32) with one instruction, so a warp instruction covers
+// 512 contiguous bytes, 2 tiles of 128 bf16 (L = tile / 8 lanes a tile). A
+// warp issues the loads of kGroup such 512-byte chunks into registers before
+// it reduces the first: at 40 registers (bf16) 6 blocks of 8 warps fit an SM,
+// so about 48 KB an SM are in flight, above the ~18 KB that Little's law asks
+// of 3.35 TB/s at ~0.7 us. The abs-max is a log2(L)-step __shfl_xor_sync
+// reduction (4 steps at tile 128 in bf16), a lane writes its 8 (or 4) codes
+// as one 8- (or 4-) byte store and the first lane of a tile its scale. The
+// grid gives each warp one group of chunks. On an H100 (tools/ab_int8.py)
+// that beat 1, 4 and 8 chunks a warp, one resident wave striding over the
+// chunks, loading the next group during this one's reduction and register
+// caps for more blocks an SM. The division stays IEEE (below): about 1.3 M
+// warp-level divisions a call at the path's shape; a copy that multiplies
+// instead ran about 10% faster, which is not a reason to give up
+// bit-exactness.
+// Scalar route (quantize_kernel), for what the vector route cannot take (a
+// pointer off 16 bytes, a tile under 16 bytes such as D = 97's tile of 1):
+// one warp per (row, tile), four 2- or 4-byte loads a lane, a 5-step
+// reduction. The caller chooses the route from shape and alignment.
+// Dequantize is a grid-stride elementwise pass that handles four elements per
+// thread where D allows.
 //
 // Bit-exactness with the plain version (and with the JAX oracle) needs IEEE
 // division by the scale (__fdiv_rn, not a multiply by its reciprocal),
 // round-half-even (rintf, as jnp.round / torch.round), the scale computed as
 // fmaxf(amax, 1e-8f) / 127.0f in f32, and no --use_fast_math.
 //
-// C interface: every entry point returns cudaGetLastError() after its launch.
-// dtype codes: 0 = float32, 1 = bfloat16.
+// C interface: every entry point returns cudaGetLastError() after its launch,
+// or cudaErrorInvalidValue without launching for a dtype code or a route it
+// does not take. dtype codes: 0 = float32, 1 = bfloat16. quantize_int8's
+// vector flag: 1 = the vector route (x 16-byte aligned, q aligned to a lane's
+// codes, 8 bytes in bf16 and 4 in f32, the tile at least 16 bytes), 0 = the
+// scalar route.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,6 +65,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBlocks = 132 * 16;
+constexpr int kGroup = 2;          // 512-byte chunks a warp loads before it reduces the first
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -102,6 +126,103 @@ quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restri
   }
 }
 
+// 16 bytes of x as f32: 8 bf16 (a bf16 is the high half of its f32) or 4 f32.
+__device__ __forceinline__ void unpack(const uint4& u, float (&v)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void unpack(const uint4& u, float (&v)[4]) {
+  v[0] = __uint_as_float(u.x);
+  v[1] = __uint_as_float(u.y);
+  v[2] = __uint_as_float(u.z);
+  v[3] = __uint_as_float(u.w);
+}
+
+// round-half-even(v / scale) clamped to +-127, as the low byte of an int.
+__device__ __forceinline__ uint32_t code(float v, float scale) {
+  const float r = fminf(fmaxf(rintf(__fdiv_rn(v, scale)), -127.f), 127.f);
+  return static_cast<uint32_t>(static_cast<int>(r)) & 0xffu;
+}
+
+// Vector route. x is n_vec vectors of 16 bytes; a tile is 1 << lanes_log2 of
+// them, so vector i belongs to tile i >> lanes_log2. Warp chunk c is vectors
+// [32 c, 32 c + 32), lane l taking vector 32 c + l; a warp takes kGroup
+// consecutive chunks at a time, their loads issued before any reduction. A
+// tile's lanes are neighbours within one chunk, so a chunk past the end is
+// wholly masked for each tile.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+quantize_vec_kernel(const uint4* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ s,
+                    long long n_vec, int lanes_log2) {
+  constexpr int kN = 16 / static_cast<int>(sizeof(T));  // elements a lane loads
+  const int lane = threadIdx.x & 31;
+  const int tile_lanes = 1 << lanes_log2;
+  const long long n_chunks = (n_vec + 31) / 32;
+  const long long warp = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps * kGroup;
+  for (long long c0 = warp * kGroup; c0 < n_chunks; c0 += stride) {
+    uint4 raw[kGroup];
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      const long long i = (c0 + g) * 32 + lane;
+      raw[g] = i < n_vec ? __ldcs(x + i) : make_uint4(0u, 0u, 0u, 0u);
+    }
+    float amax[kGroup];
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      float v[kN];
+      unpack(raw[g], v);
+      amax[g] = 0.f;
+#pragma unroll
+      for (int e = 0; e < kN; ++e) amax[g] = fmaxf(amax[g], fabsf(v[e]));
+    }
+    for (int off = tile_lanes >> 1; off > 0; off >>= 1) {
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g)
+        amax[g] = fmaxf(amax[g], __shfl_xor_sync(0xffffffffu, amax[g], off));
+    }
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      const long long i = (c0 + g) * 32 + lane;
+      if (i >= n_vec) break;  // later chunks of the group lie further out
+      const float scale = __fdiv_rn(fmaxf(amax[g], 1e-8f), 127.0f);
+      float v[kN];
+      unpack(raw[g], v);
+      if constexpr (kN == 8) {
+        uint2 packed;
+        packed.x = code(v[0], scale) | code(v[1], scale) << 8 | code(v[2], scale) << 16 |
+                   code(v[3], scale) << 24;
+        packed.y = code(v[4], scale) | code(v[5], scale) << 8 | code(v[6], scale) << 16 |
+                   code(v[7], scale) << 24;
+        __stcs(reinterpret_cast<uint2*>(q) + i, packed);
+      } else {
+        const uint32_t packed = code(v[0], scale) | code(v[1], scale) << 8 |
+                                code(v[2], scale) << 16 | code(v[3], scale) << 24;
+        __stcs(reinterpret_cast<unsigned int*>(q) + i, packed);
+      }
+      if ((lane & (tile_lanes - 1)) == 0) s[i >> lanes_log2] = scale;
+    }
+  }
+}
+
+template <typename T>
+int launch_vec(const void* x, void* q, void* s, long long n, int tile, cudaStream_t st) {
+  constexpr int kN = 16 / static_cast<int>(sizeof(T));
+  const int lanes_log2 = __builtin_ctz(static_cast<unsigned>(tile / kN));
+  const long long n_vec = n / kN;
+  // One group of chunks a warp; the kernel's stride loop then runs once.
+  const long long blocks = ((n_vec + 31) / 32 + kWarps * kGroup - 1) / (kWarps * kGroup);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  quantize_vec_kernel<T><<<static_cast<int>(blocks), kThreads, 0, st>>>(
+      static_cast<const uint4*>(x), static_cast<int8_t*>(q), static_cast<float*>(s), n_vec,
+      lanes_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // out[i] = q[i] * s[i >> tile_shift]: with D a multiple of the tile, the
 // flat index over tiles of the (rows, D) array is the scale's flat index.
 template <typename T>
@@ -136,19 +257,27 @@ int blocks_for(long long work_items, int items_per_block) {
 }  // namespace
 
 extern "C" int quantize_int8(const void* x, void* q, void* s, long long rows, int d,
-                             int tile, int dtype, void* stream) {
-  const int blocks = blocks_for(rows * (d / tile), kWarps);
+                             int tile, int dtype, int vector, void* stream) {
+  if ((dtype != 0 && dtype != 1) || tile <= 0 || (tile & (tile - 1)) || d % tile)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vector) {
+    const int esize = dtype == 1 ? 2 : 4;
+    if (tile * esize < 16 || reinterpret_cast<uintptr_t>(x) % 16 ||
+        reinterpret_cast<uintptr_t>(q) % (16 / esize))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return dtype == 1 ? launch_vec<__nv_bfloat16>(x, q, s, rows * d, tile, st)
+                      : launch_vec<float>(x, q, s, rows * d, tile, st);
+  }
+  const int blocks = blocks_for(rows * (d / tile), kWarps);
   if (dtype == 1) {
     quantize_kernel<__nv_bfloat16><<<blocks, kThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(q),
         static_cast<float*>(s), rows, d, tile);
-  } else if (dtype == 0) {
+  } else {
     quantize_kernel<float><<<blocks, kThreads, 0, st>>>(
         static_cast<const float*>(x), static_cast<int8_t*>(q), static_cast<float*>(s),
         rows, d, tile);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

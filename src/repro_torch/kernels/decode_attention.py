@@ -28,8 +28,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import softmax_scale
 
-HEAD_DIMS = (64, 128, 256)
-GROUP_SIZES = (1, 2, 4, 8)       # query heads per KV head
+HEAD_DIMS = (16, 64, 128, 256)          # bf16 caches' (16: the f32 smoke models decode on them)
+F32_HEAD_DIMS = (16, 32, 64, 128, 256)  # f32 caches'
+GROUP_SIZES = (1, 2, 4, 6, 8)    # query heads per KV head (grok-1's group is 6)
 TILE = 64                        # keys in a stage of the kernel's ring (at hd 128, bf16)
 MIN_SPLIT_KEYS = 64              # the fewest keys worth a block of their own
 MAX_SPLITS = 8                   # a cluster holds 8 blocks at most
@@ -86,7 +87,7 @@ def _scratch(device: torch.device, rows: int) -> tuple:
             raise RuntimeError("decode attention met a new scratch size during CUDA-graph "
                                "capture; call it once at this shape before capturing")
         f32 = dict(dtype=torch.float32, device=device)
-        buf = (torch.empty((cls, 2), **f32), torch.empty((cls, max(HEAD_DIMS)), **f32),
+        buf = (torch.empty((cls, 2), **f32), torch.empty((cls, max(F32_HEAD_DIMS)), **f32),
                torch.zeros(cls, dtype=torch.int32, device=device))
         _SCRATCH[key] = buf
     return buf
@@ -107,12 +108,13 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
     if hkv == 0 or hq % hkv or hq // hkv not in GROUP_SIZES:
         raise ValueError(f"{hq} query heads over {hkv} KV heads: groups of "
                          f"{GROUP_SIZES} only")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     if k_cache.dtype not in _DTYPE_CODE or v_cache.dtype != k_cache.dtype \
             or q.dtype not in (k_cache.dtype, torch.float32):
         raise TypeError(f"the caches must share float32 or bfloat16 and q their dtype "
                         f"or float32, got {q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
+    dims = F32_HEAD_DIMS if k_cache.dtype == torch.float32 else HEAD_DIMS
+    if hd not in dims:
+        raise ValueError(f"head_dim {hd} not in {dims} for {k_cache.dtype} caches")
     length = int(length)
     if not 1 <= length <= s:
         raise ValueError(f"length {length} outside [1, {s}]")

@@ -4,9 +4,11 @@ Counterpart of ``repro/kernels/flash_attention.py``. The kernel is in
 ``csrc/flash_attention.cu``: online softmax over the KV tiles that the
 causal and window masks leave live, f32 m/l/acc, an optional tanh softcap.
 bf16 runs on ``wgmma`` with TMA loads and a producer warpgroup feeding two
-consumer warpgroups (``tile_config`` gives its tiles); f32 takes an FMA
-path. It keeps the public ``(B, S, H, hd)`` layout and takes K and V with
-``H`` heads or with ``Hkv`` heads where ``Hkv`` divides ``H``; query head
+consumer warpgroups (``tile_config`` gives its tiles) at head dims 64, 128
+and 256 (a TMA box is 64 values wide); f32 takes an FMA path, also at head
+dims 16 and 32 (the smoke configs'). It keeps the public ``(B, S, H, hd)``
+layout and takes K and V with ``H`` heads or with ``Hkv`` heads where
+``Hkv`` divides ``H``; query head
 ``h`` then reads KV head ``h // (H // Hkv)``, the order of
 ``layers._repeat_kv``. q, k and v may be strided views (of a fused QKV
 tensor, say) as long as the last stride is 1 and rows are 16-byte aligned,
@@ -25,7 +27,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 128, 256)              # the bf16 kernel's
+F32_HEAD_DIMS = (16, 32, 64, 128, 256)  # the f32 kernel's
 _SIGNATURES = {
     "flash_attention_fwd": (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
@@ -75,11 +78,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     hkv = k.shape[2]
     if hkv == 0 or h % hkv:
         raise ValueError(f"{hkv} KV heads do not divide {h} query heads")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    dims = F32_HEAD_DIMS if q.dtype == torch.float32 else HEAD_DIMS
+    if hd not in dims:
+        raise ValueError(f"head_dim {hd} not in {dims} for {q.dtype}")
     if window is not None and window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if softcap is not None and softcap <= 0:

@@ -6,7 +6,12 @@ Counterpart of ``repro/kernels/int8_transfer.py``. The kernels are in
 ``q = clip(round(x / scale), -127, 127)``, bit-exact with
 ``ref.quantize_int8``; dequantize is ``q * scale`` in f32, rounded to the
 requested dtype. Each wrapper takes CUDA tensors only (``ops`` sends CPU
-tensors to the plain versions) and counts its launches.
+tensors to the plain versions) and counts its launches. Quantize has two
+hand-written routes, chosen before the launch from shape and alignment
+alone (``quantize_route``): the vector route (16-byte loads, several chunks
+in flight a warp) where x is 16-byte aligned and a tile holds at least 16
+bytes, else the scalar route (a warp per tile); ``quantize_routes`` counts
+the launches of each.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ from repro_torch.kernels import _build
 _SIGNATURES = {
     "quantize_int8": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p], ctypes.c_int),
+                       ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
     "dequantize_int8": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                          ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                          ctypes.c_void_p], ctypes.c_int),
@@ -29,6 +34,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 quantize_launches = 0
 dequantize_launches = 0
+quantize_routes = {"vector": 0, "scalar": 0}
 
 
 def _check_cuda(name: str, t: torch.Tensor) -> None:
@@ -38,10 +44,18 @@ def _check_cuda(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _call(fn: str, *args) -> None:
+def _call(fn: str, what: str, *args) -> None:
     rc = getattr(_build.load("int8_transfer", _SIGNATURES), fn)(*args)
     if rc != 0:
-        raise RuntimeError(f"{fn} kernel failed: CUDA error {rc}")
+        raise RuntimeError(f"{fn} kernel failed ({what}): CUDA error {rc}")
+
+
+def quantize_route(x: torch.Tensor, tile: int) -> str:
+    """"vector" where x's data is 16-byte aligned and a tile of ``tile``
+    elements holds at least 16 bytes (so each lane's 16-byte load lies in
+    one tile), else "scalar"."""
+    aligned = x.data_ptr() % 16 == 0
+    return "vector" if aligned and tile * x.element_size() >= 16 else "scalar"
 
 
 def quantize_int8_cuda(x: torch.Tensor, tile: int = 128):
@@ -57,10 +71,13 @@ def quantize_int8_cuda(x: torch.Tensor, tile: int = 128):
     rows = x.numel() // d if d else 0
     if rows == 0:
         return q, s
+    route = quantize_route(x, tile)
     with torch.cuda.device(x.device):
-        _call("quantize_int8", x.data_ptr(), q.data_ptr(), s.data_ptr(), rows, d, tile,
-              _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
+        _call("quantize_int8", f"{x.dtype}, {route} route, tile {tile}", x.data_ptr(),
+              q.data_ptr(), s.data_ptr(), rows, d, tile, _DTYPE_CODE[x.dtype],
+              int(route == "vector"), torch.cuda.current_stream().cuda_stream)
     quantize_launches += 1
+    quantize_routes[route] += 1
     return q, s
 
 
@@ -87,7 +104,8 @@ def dequantize_int8_cuda(q: torch.Tensor, scales: torch.Tensor,
     if q.numel() == 0:
         return out
     with torch.cuda.device(q.device):
-        _call("dequantize_int8", q.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        _call("dequantize_int8", f"int8 to {dtype}, tile {tile}", q.data_ptr(),
+              scales.data_ptr(), out.data_ptr(),
               q.numel(), tile.bit_length() - 1, _DTYPE_CODE[dtype],
               torch.cuda.current_stream().cuda_stream)
     dequantize_launches += 1

@@ -52,6 +52,7 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     fk.launches = 0
     ik.quantize_launches = 0
+    ik.quantize_routes.update(vector=0, scalar=0)
     ik.dequantize_launches = 0
     dk.launches = 0
     sk.launches = 0

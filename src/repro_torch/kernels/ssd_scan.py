@@ -9,7 +9,10 @@ split into two bf16 halves, and the state stays in registers across chunks.
 ``launch_config`` gives that launch. For f32 inputs an FMA kernel takes one
 block per (batch, head). Both own a zero initial state, as the Pallas kernel
 does, and write y in f32, as the model's ``ssm.ssd_chunked`` returns it (the
-Pallas kernel writes y in x's type).
+Pallas kernel writes y in x's type). The bf16 kernel takes chunks of a
+multiple of 16 steps; ``pad_chunks`` pads any other chunk the reference
+takes (a prompt shorter than the chunk, or a small chunk) with zero steps,
+which leave the state as it is.
 """
 from __future__ import annotations
 
@@ -56,6 +59,37 @@ def launch_config(b: int, h: int, p: int, n: int, q: int) -> tuple:
     return (p // pblk, h, b), THREADS, smem
 
 
+def padded_chunk(q: int) -> int:
+    """The bf16 kernel's chunk for a chunk of ``q`` steps: 16 ceil(q / 16)."""
+    return 16 * -(-q // 16)
+
+
+def pad_chunks(x: torch.Tensor, dtA: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
+               C_: torch.Tensor, q: int) -> Tuple[Tuple[torch.Tensor, ...], int]:
+    """The inputs with each chunk of ``q`` steps padded by zero steps to
+    ``q16 = padded_chunk(q)``, and ``q16``. A zero step adds ``dt x = 0`` to
+    the state and decays it by ``exp(0) = 1``, so it leaves the state as it
+    is wherever it sits; the chunked scan at chunk ``q16`` then gives the
+    real steps' y (``unpad_chunks``) and the same final state."""
+    b, s = x.shape[:2]
+    q16 = padded_chunk(q)
+    nc = s // q
+
+    def pad(t: torch.Tensor) -> torch.Tensor:
+        out = t.new_zeros((b, nc, q16, *t.shape[2:]))
+        out[:, :, :q] = t.reshape(b, nc, q, *t.shape[2:])
+        return out.reshape(b, nc * q16, *t.shape[2:])
+
+    return tuple(pad(t) for t in (x, dtA, dt, B_, C_)), q16
+
+
+def unpad_chunks(y: torch.Tensor, q: int, q16: int) -> torch.Tensor:
+    """y (B, S / q * q16, ...) of padded chunks back to the real steps."""
+    b, sp = y.shape[:2]
+    return y.reshape(b, sp // q16, q16, *y.shape[2:])[:, :, :q].reshape(
+        b, sp // q16 * q, *y.shape[2:])
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous and 16-byte aligned (the kernels copy 16 bytes at a time)."""
     t = t.contiguous()
@@ -80,8 +114,9 @@ def ssd_scan_cuda(x: torch.Tensor, dtA: torch.Tensor, dt: torch.Tensor, B_: torc
     if x.dtype not in _DTYPE_CODE or B_.dtype != x.dtype or C_.dtype != x.dtype:
         raise TypeError(f"x, B and C must share float32 or bfloat16, got {x.dtype}, "
                         f"{B_.dtype}, {C_.dtype}")
+    q16 = padded_chunk(q) if x.dtype == torch.bfloat16 else q
     if x.dtype == torch.bfloat16:
-        launch_config(b, h, p, n, q)
+        launch_config(b, h, p, n, q16)
     elif not (0 < n <= MAX_STATE and n % 4 == 0 and 0 < p <= MAX_HEAD_DIM and p % 4 == 0):
         raise ValueError(f"state {n} and head dim {p} must be multiples of 4, at most "
                          f"{MAX_STATE} and {MAX_HEAD_DIM}")
@@ -90,19 +125,22 @@ def ssd_scan_cuda(x: torch.Tensor, dtA: torch.Tensor, dt: torch.Tensor, B_: torc
             raise ValueError(f"{name} must be a CUDA tensor on {x.device}, got {t.device}")
         if t.requires_grad and torch.is_grad_enabled():
             raise RuntimeError(f"the SSD kernel has no backward; {name} requires grad")
+    if q16 != q:
+        (x, dtA, dt, B_, C_), _ = pad_chunks(x, dtA, dt, B_, C_, q)
     x, B_, C_ = _aligned(x), _aligned(B_), _aligned(C_)
     dtA = dtA.to(torch.float32).contiguous()
     dt = dt.to(torch.float32).contiguous()
-    y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
+    sp = x.shape[1]
+    y = torch.empty((b, sp, h, p), dtype=torch.float32, device=x.device)
     state = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y, state.zero_()
     with torch.cuda.device(x.device):
         rc = _build.load("ssd_scan", _SIGNATURES).ssd_scan_fwd(
             x.data_ptr(), dtA.data_ptr(), dt.data_ptr(), B_.data_ptr(), C_.data_ptr(),
-            y.data_ptr(), state.data_ptr(), _DTYPE_CODE[x.dtype], b, s, h, n, p, q,
+            y.data_ptr(), state.data_ptr(), _DTYPE_CODE[x.dtype], b, sp, h, n, p, q16,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel failed: CUDA error {rc}")
     launches += 1
-    return y, state
+    return (y if q16 == q else unpad_chunks(y, q, q16)), state

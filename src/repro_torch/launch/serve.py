@@ -11,9 +11,11 @@ prompt is prefilled and that cache is discarded; a fixed-size cache of
 prompt one token at a time; the first new token is the argmax of the last
 teacher-forced step's logits, and ``new_tokens`` greedy steps follow.
 ``tok_per_s`` counts the greedy loop only. Weights and prompt tokens come
-from one ``torch.Generator`` seeded with ``seed``. It runs on the card
-unless ``device="cpu"``; the smoke config is the default, ``--full`` the
-published one.
+from one ``torch.Generator`` seeded with ``seed``: on the CPU for the smoke
+config, so that a seed gives the same model and prompts on every device,
+and on the device for the published config, whose weights are too large to
+draw on the host. It runs on the card unless ``device="cpu"``; the smoke
+config (f32, head dim 16) is the default, ``--full`` the published one.
 """
 from __future__ import annotations
 
@@ -35,16 +37,18 @@ def _sync(device: torch.device) -> None:
 
 def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, new_tokens: int = 16,
           smoke: bool = True, seed: int = 0, device="cuda") -> dict:
-    """Returns the greedy tokens (B, new_tokens + 1) as numpy, ``tok_per_s``,
+    """Returns the prompt (B, prompt_len) and the greedy tokens
+    (B, new_tokens + 1) as numpy, ``tok_per_s``,
     the wall times of the prefill and of the teacher-forced refill in ms, and
     the logits (B, 1, padded_vocab) of the prefill's last position and of the
     last teacher-forced step, which see the same prompt."""
     device = torch.device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    model = build_model(cfg, device=device, generator=gen)
+    init = torch.device("cpu") if smoke else device
+    gen = torch.Generator(device=init).manual_seed(seed)
+    model = build_model(cfg, device=init, generator=gen).to(device)
     tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen,
-                           device=device)
+                           device=init).to(device)
     prefill, step = build_prefill_step(model), build_decode_step(model)
 
     _sync(device)
@@ -68,7 +72,8 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, new_tokens: int = 
         out.append(tok)
     _sync(device)
     dt = time.perf_counter() - t2
-    return {"tokens": torch.cat(out, dim=1).cpu().numpy().astype(np.int32),
+    return {"prompt": tokens.cpu().numpy().astype(np.int32),
+            "tokens": torch.cat(out, dim=1).cpu().numpy().astype(np.int32),
             "tok_per_s": batch * new_tokens / dt,
             "prefill_ms": 1e3 * (t1 - t0), "teacher_ms": 1e3 * (t2 - t1),
             "prefill_logits": prefill_logits, "teacher_logits": teacher_logits}

@@ -6,6 +6,8 @@ also runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as tdk
 from repro_torch.kernels import flash_attention as tfk
 from repro_torch.kernels import int8_transfer as tik
+from repro_torch.kernels.int8_cases import INT8_ADVERSARIAL, int8_adversarial
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd_scan as tsk
@@ -45,6 +48,82 @@ def test_cuda_int8_bit_exact(card, shape, dtype):
     for out in ("float32", "bfloat16"):
         assert torch.equal(tik.dequantize_int8_cuda(q, s, _TORCH[out]),
                            tref.dequantize_int8(qe, se, _TORCH[out]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", INT8_ADVERSARIAL)
+def test_cuda_int8_bit_exact_on_adversarial_inputs(card, case, dtype):
+    x = torch.from_numpy(int8_adversarial(case)).to(card, _TORCH[dtype])
+    tops.reset_launch_counts()
+    q, s = tik.quantize_int8_cuda(x)
+    qe, se = tref.quantize_int8(x)
+    assert tik.quantize_routes == {"vector": 1, "scalar": 0}
+    assert torch.equal(q, qe) and torch.equal(s, se)
+    for out in ("float32", "bfloat16"):
+        assert torch.equal(tik.dequantize_int8_cuda(q, s, _TORCH[out]),
+                           tref.dequantize_int8(qe, se, _TORCH[out]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,route", [
+    ("bfloat16", 5120, "vector"), ("bfloat16", 192, "vector"), ("bfloat16", 96, "vector"),
+    ("bfloat16", 80, "vector"), ("bfloat16", 8, "vector"), ("bfloat16", 12, "scalar"),
+    ("bfloat16", 97, "scalar"), ("float32", 5120, "vector"), ("float32", 96, "vector"),
+    ("float32", 80, "vector"), ("float32", 8, "vector"), ("float32", 12, "vector"),
+    ("float32", 2, "scalar"), ("float32", 97, "scalar"),
+])
+def test_cuda_int8_every_route_and_lane_count(card, dtype, d, route):
+    """Every tile the vector route takes (1 to 32 lanes a tile) and the
+    scalar route's, bit-exact; 37 rows, so the last warp's chunks are ragged;
+    the route is counted once per launch."""
+    x = torch.from_numpy(_normal((37, d), 41, 3.0)).to(card, _TORCH[dtype])
+    tops.reset_launch_counts()
+    q, s = tik.quantize_int8_cuda(x)
+    qe, se = tref.quantize_int8(x)
+    assert tik.quantize_route(x, math.gcd(d, 128)) == route
+    assert tik.quantize_routes == {"vector": int(route == "vector"),
+                                   "scalar": int(route == "scalar")}
+    assert torch.equal(q, qe) and torch.equal(s, se)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_int8_unaligned_view_takes_the_scalar_route(card, dtype):
+    """A view 2 (or 4) bytes off 16-byte alignment: the scalar route, chosen
+    before the launch, bit-exact; the aligned copy takes the vector route."""
+    rows, d = 300, 5120
+    buf = torch.from_numpy(_normal((rows * d + 1,), 42, 3.0)).to(card, _TORCH[dtype])
+    view = buf[1:].view(rows, d)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    tops.reset_launch_counts()
+    q, s = tik.quantize_int8_cuda(view)
+    qa, sa = tik.quantize_int8_cuda(view.clone())
+    assert tik.quantize_routes == {"vector": 1, "scalar": 1}
+    qe, se = tref.quantize_int8(view)
+    assert torch.equal(q, qe) and torch.equal(s, se)
+    assert torch.equal(qa, qe) and torch.equal(sa, se)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32])
+@pytest.mark.parametrize("b,s,h,hkv,causal,window,cap", [
+    (2, 200, 4, 2, True, None, None),
+    (1, 333, 4, 4, True, 64, None),
+    (1, 256, 6, 1, True, 16, 50.0),
+    (2, 130, 4, 4, False, None, None),
+    (1, 190, 4, 2, False, 30, None),
+])
+def test_cuda_flash_f32_small_head_dims(card, hd, b, s, h, hkv, causal, window, cap):
+    """Head dims 16 and 32 in f32, the smoke configs' attention."""
+    q = torch.from_numpy(_normal((b, s, h, hd), 4)).to(card)
+    k = torch.from_numpy(_normal((b, s, hkv, hd), 5)).to(card)
+    v = torch.from_numpy(_normal((b, s, hkv, hd), 6)).to(card)
+    out = tfk.flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=cap)
+    rep = h // hkv
+    exp = tref.flash_attention(q, tops.repeat_kv(k, rep), tops.repeat_kv(v, rep),
+                               causal=causal, window=window, softcap=cap)
+    torch.testing.assert_close(out, exp, atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.cuda
@@ -177,6 +256,58 @@ def test_cuda_decode_attention_matches_plain(card, dtype, b, s, hq, hkv, hd, len
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd", [("float32", 16), ("float32", 32), ("bfloat16", 16)])
+@pytest.mark.parametrize("rep", [1, 2, 4, 6, 8])
+@pytest.mark.parametrize("b,s,hkv,length,window,cap", [
+    (2, 100, 2, 37, None, None),        # one split
+    (1, 700, 2, 650, 300, 30.0),        # splits combined in a cluster, window, softcap
+    (1, 20000, 1, 19000, None, None),   # long splits: scratch and counters
+])
+def test_cuda_decode_small_head_dims_and_group_6(card, dtype, hd, rep, b, s, hkv, length,
+                                                 window, cap):
+    """Head dims 16 and 32 (half a warp idle in the f32 kernel's P.V at 16)
+    with every group size, 6 among them, and both combines; bf16 caches at
+    16 only (no config decodes one at 32)."""
+    dt = _TORCH[dtype]
+    q = torch.from_numpy(_normal((b, hkv * rep, hd), 7)).to(card, dt)
+    k = torch.from_numpy(_normal((b, s, hkv, hd), 8)).to(card, dt)
+    v = torch.from_numpy(_normal((b, s, hkv, hd), 9)).to(card, dt)
+    out = tdk.decode_attention_cuda(q, k, v, length, window=window, softcap=cap)
+    exp = tref.decode_attention(q, k, v, length, window=window, softcap=cap)
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,length", [(128, 544), (128, 32768), (64, 100), (256, 3000)])
+def test_cuda_decode_bf16_group_6(card, hd, length):
+    """grok-1's group of 48 query heads on 8: rows 6 and 7 of the mma tile
+    are padding and are never written out."""
+    b, s = 2, max(length, 64)
+    q = torch.from_numpy(_normal((b, 48, hd), 10)).to(card, torch.bfloat16)
+    k = torch.from_numpy(_normal((b, s, 8, hd), 11)).to(card, torch.bfloat16)
+    v = torch.from_numpy(_normal((b, s, 8, hd), 12)).to(card, torch.bfloat16)
+    out = tdk.decode_attention_cuda(q, k, v, length)
+    exp = tref.decode_attention(q, k, v, length)
+    assert out.shape == (b, 48, hd)
+    torch.testing.assert_close(out.float(), exp.float(), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (4, 4)])
+def test_cuda_decode_f32_query_on_bf16_cache_small_head_dims(card, hq, hkv):
+    """The smoke models' decode: an f32 q (split into two bf16 parts) against
+    the bf16 cache at hd 16, groups 2 and 1."""
+    q = torch.from_numpy(_normal((4, hq, 16), 13)).to(card)
+    k = torch.from_numpy(_normal((4, 48, hkv, 16), 14)).to(card, torch.bfloat16)
+    v = torch.from_numpy(_normal((4, 48, hkv, 16), 15)).to(card, torch.bfloat16)
+    for length in (1, 17, 48):
+        out = tops.decode_attention(q, k, v, length)
+        exp = tref.decode_attention(q, k, v, length)
+        torch.testing.assert_close(out.float(), exp.float(), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("window", [None, 300])
 def test_cuda_decode_consecutive_calls_and_graph_replay(card, window):
     """Calls at lengths 1, 33, 544 and 32,768 one after another: one split,
@@ -280,6 +411,21 @@ def test_cuda_ssd_scan_hard_cases(card, dtype, what, b, s, h, p, n, chunk, a_log
     assert torch.isfinite(y).all() and torch.isfinite(st).all()
     if what.startswith("slow decay"):
         assert float(ye.abs().max()) > 10.0
+    torch.testing.assert_close(y, ye, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(st, ste, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,chunk", [(8, 256), (100, 256), (250, 256), (64, 8), (96, 24)])
+def test_cuda_ssd_scan_chunks_off_16(card, dtype, s, chunk):
+    """Short prompts (one chunk of 8, 100 or 250 steps) and small chunks: the
+    bf16 wrapper pads each chunk with zero steps to a multiple of 16."""
+    args = _ssd_case(card, _TORCH[dtype], 2, s, 4, 64, 128, -1.0)
+    tsk.launches = 0
+    y, st = tsk.ssd_scan_cuda(*args, chunk=chunk)
+    ye, ste = tref.ssd_chunked(*args, chunk=chunk)
+    assert tsk.launches == 1 and y.shape == (2, s, 4, 64)
     torch.testing.assert_close(y, ye, atol=2e-3, rtol=2e-3)
     torch.testing.assert_close(st, ste, atol=2e-3, rtol=2e-3)
 

@@ -25,6 +25,7 @@ from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels import decode_attention as tdk
 from repro_torch.kernels import flash_attention as tfk
 from repro_torch.kernels import int8_transfer as tik
+from repro_torch.kernels.int8_cases import INT8_ADVERSARIAL, int8_adversarial
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd_scan as tsk
@@ -88,6 +89,25 @@ def test_int8_plain_bit_exact_with_jax(shape, dtype):
     xp = dequantize_int8_pallas(jnp.asarray(_np(q)), jnp.asarray(_np(s)),
                                 dtype=_JNP[dtype], row_block=4, interpret=True)
     np.testing.assert_array_equal(_np(x), _np(xp))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", INT8_ADVERSARIAL)
+def test_int8_plain_bit_exact_with_jax_on_adversarial_inputs(case, dtype):
+    """The card tests' adversarial inputs (exact ties, zero tiles, one 1e30
+    per tile, subnormals): the plain version, which the kernel is held to
+    bit for bit on the card, is bit-exact with the JAX oracle run eagerly."""
+    jx, tx = _both(int8_adversarial(case), dtype)
+    q, s = tops.quantize_int8(tx)
+    qe, se = jref.quantize_int8(jx)
+    np.testing.assert_array_equal(_np(q), np.asarray(qe))
+    np.testing.assert_array_equal(_np(s), np.asarray(se))
+    if case == "ties":
+        assert (_np(s) == 2.0 ** -3).all()
+        odd = np.abs(_np(q)) % 2 == 1
+        assert not odd[np.abs(_np(q)) != 127].any()     # every tie went to even
+    x = tops.dequantize_int8(q, s, dtype=_TORCH[dtype])
+    np.testing.assert_array_equal(_np(x), _np(jref.dequantize_int8(qe, se, dtype=_JNP[dtype])))
 
 
 def test_int8_rounds_half_to_even_and_clamps():
@@ -334,16 +354,55 @@ def test_ssd_launch_config_raises_on_refused_shapes(p, n, q):
 
 def test_ssd_bf16_wrapper_refuses_shapes_off_16():
     """The bf16 kernel's shape check comes before the device check, so it
-    shows here on CPU tensors; the f32 kernel takes multiples of 4."""
+    shows here on CPU tensors: head dims and states off 16 are refused, a
+    chunk off 16 is padded (it reaches the device check); the f32 kernel
+    takes multiples of 4."""
     x = torch.zeros(1, 64, 2, 24, dtype=torch.bfloat16)
     bc = torch.zeros(1, 64, 16, dtype=torch.bfloat16)
+    bc24 = torch.zeros(1, 64, 24, dtype=torch.bfloat16)
     dts = torch.zeros(1, 64, 2)
     with pytest.raises(ValueError, match="multiples of 16"):
         tsk.ssd_scan_cuda(x, dts, dts, bc, bc, chunk=64)
-    with pytest.raises(ValueError, match="multiple of 16"):
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tsk.ssd_scan_cuda(x[..., :16], dts, dts, bc24, bc24, chunk=8)
+    with pytest.raises(ValueError, match="CUDA"):
         tsk.ssd_scan_cuda(x[..., :16], dts, dts, bc, bc, chunk=8)
     with pytest.raises(ValueError, match="CUDA"):
         tsk.ssd_scan_cuda(x.float(), dts, dts, bc.float(), bc.float(), chunk=64)
+
+
+@pytest.mark.parametrize("s,chunk", [(8, 256), (100, 256), (250, 256), (64, 8)])
+def test_ssd_padded_chunks_match_jax(s, chunk):
+    """What the bf16 wrapper does with a chunk off 16, in f32 on the CPU: each
+    chunk padded with zero steps to a multiple of 16, the plain chunked scan at
+    that chunk, y cut back to the real steps; against the JAX model's
+    ``ssd_chunked`` at the unpadded chunk. A short prompt (one chunk of 8, 100
+    or 250 steps) and a small chunk (8 chunks of 8)."""
+    args = _ssd_inputs(2, s, 3, 16, 16, seed=80)
+    q = min(chunk, s)
+    padded, q16 = tsk.pad_chunks(*(torch.from_numpy(a) for a in args), q)
+    assert q16 % 16 == 0 and q <= q16 < q + 16
+    assert padded[0].shape == (2, s // q * q16, 3, 16)
+    y, st = tref.ssd_chunked(*padded, chunk=q16)
+    y = tsk.unpad_chunks(y, q, q16)
+    yj, stj = jax_ssd_chunked(*(jnp.asarray(a) for a in args), None, chunk=chunk)
+    assert y.shape == (2, s, 3, 16)
+    np.testing.assert_allclose(_np(y), np.asarray(yj), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(_np(st), np.asarray(stj), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("s,q", [(100, 100), (64, 8), (40, 20)])
+def test_ssd_padded_steps_leave_the_state_bit_identical(s, q):
+    """A zero step multiplies the state by exp(0) = 1 and adds 0: the
+    sequential recurrence over the padded steps ends in the very same f32
+    state, and its real steps' y are the very same values."""
+    args = [torch.from_numpy(a) for a in _ssd_inputs(1, s, 2, 16, 16, seed=90)]
+    padded, q16 = tsk.pad_chunks(*args, q)
+    assert q16 > q
+    y, st = tref.ssd_reference(*args)
+    yp, stp = tref.ssd_reference(*padded)
+    assert torch.equal(st, stp)
+    assert torch.equal(y, tsk.unpad_chunks(yp, q, q16))
 
 
 def _ssd_rounded(x, dtA, dt, B_, C_, chunk, split):
@@ -486,6 +545,54 @@ def test_flash_wrapper_rejects_unsupported_head_dim():
     q = torch.zeros(1, 8, 2, 48)
     with pytest.raises(ValueError, match="head_dim"):
         tfk.flash_attention_cuda(q, q, q)
+
+
+@pytest.mark.parametrize("hd", [16, 32])
+def test_attention_wrappers_take_small_head_dims_in_f32(hd):
+    """Head dims 16 and 32 (the smoke configs') pass the shape checks in f32,
+    so CPU tensors reach the device check; bf16 flash keeps 64, 128 and 256
+    (its TMA box is 64 values wide); decode takes 16 on bf16 caches too (an
+    f32 model decodes against the bf16 cache), and 32 on f32 caches only."""
+    q = torch.zeros(1, 8, 2, hd)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfk.flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfk.flash_attention_cuda(*(q.to(torch.bfloat16),) * 3)
+    kv = torch.zeros(1, 8, 2, hd)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdk.decode_attention_cuda(torch.zeros(1, 4, hd), kv, kv, 8)
+    bf = kv.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA" if hd == 16 else "head_dim"):
+        tdk.decode_attention_cuda(torch.zeros(1, 4, hd), bf, bf, 8)
+
+
+@pytest.mark.parametrize("hq,hkv,ok", [(48, 8, True), (12, 2, True), (24, 8, False),
+                                       (10, 2, False), (16, 1, False)])
+def test_decode_wrapper_takes_group_6(hq, hkv, ok):
+    """Groups of 1, 2, 4, 6 (grok-1: 48 query heads on 8) and 8 pass the shape
+    check and reach the device check; 3, 5 and 16 are refused."""
+    q, kv = torch.zeros(1, hq, 64), torch.zeros(1, 8, hkv, 64)
+    with pytest.raises(ValueError, match="CUDA" if ok else "groups"):
+        tdk.decode_attention_cuda(q, kv, kv, 8)
+
+
+def test_quantize_route_from_shape_and_alignment():
+    """The vector route takes a 16-byte aligned x whose tiles hold 16 bytes or
+    more; everything else takes the scalar route, chosen before any launch."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert tik.quantize_route(torch.zeros(2, 4096, 5120, dtype=bf), 128) == "vector"
+    assert tik.quantize_route(torch.zeros(3, 80, dtype=bf), 16) == "vector"
+    assert tik.quantize_route(torch.zeros(3, 80), 16) == "vector"
+    assert tik.quantize_route(torch.zeros(3, 8, dtype=bf), 8) == "vector"
+    assert tik.quantize_route(torch.zeros(3, 4), 4) == "vector"
+    assert tik.quantize_route(torch.zeros(3, 12, dtype=bf), 4) == "scalar"
+    assert tik.quantize_route(torch.zeros(3, 2), 2) == "scalar"
+    assert tik.quantize_route(torch.zeros(5, 97, dtype=f32), 1) == "scalar"
+    buf = torch.zeros(4 * 5120 + 8, dtype=bf)
+    view = buf[1:1 + 4 * 5120].view(4, 5120)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 2
+    assert tik.quantize_route(view, 128) == "scalar"
+    assert tik.quantize_route(buf[8:8 + 4 * 5120].view(4, 5120), 128) == "vector"
 
 
 def test_launch_counts_reset():

@@ -260,6 +260,8 @@ def test_serve_on_cpu_shapes_and_determinism(arch):
     c = tserve.serve(arch, **{**kw, "seed": 6})
     cfg = t_get_smoke_config(arch)
     assert a["tokens"].shape == (2, 5) and a["tokens"].dtype == np.int32
+    assert a["prompt"].shape == (2, 16) and a["prompt"].dtype == np.int32
+    np.testing.assert_array_equal(a["prompt"], b["prompt"])
     assert ((0 <= a["tokens"]) & (a["tokens"] < cfg.vocab_size)).all()
     np.testing.assert_array_equal(a["tokens"], b["tokens"])
     assert not np.array_equal(a["tokens"], c["tokens"])
