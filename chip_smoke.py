@@ -5,7 +5,8 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
 per source, all at once) and holds each kernel against its plain PyTorch
-version on the card, then drives the port's two paths at full width:
+version on the card (the flash backward also against SDPA's backward as a
+yardstick), then drives the port's three paths at full width:
 
 * HAPI's forward pushdown path as a storage tier serving requests: a
   full-width two-block mistral-nemo-12b gives the same loss on the card
@@ -23,11 +24,22 @@ version on the card, then drives the port's two paths at full width:
   prefill 4 prompts of 512 tokens, refill the cache by teacher forcing and
   decode 32 tokens greedily, with exact launch counts and the prefill's
   logits held to the last teacher-forced step's.
+* Training (``repro_torch.train.steps.build_hapi_train_step``): one step of a
+  full-width two-block mistral-nemo-12b gives the same loss, gradients and
+  updates on the card and on the CPU; ``launch.train.run_training`` passes
+  ``tests/test_e2e_smoke.py``'s three scenarios on the card (the smoke
+  configs: the loss falls, a crash resumes, the int8 boundary trains) and
+  refuses mamba2, whose SSD kernel has no backward yet; then mistral-nemo-12b
+  at full width cut to 8 blocks (split 6: 2 trainable blocks and the head)
+  takes 4 fused-path steps on one repeated 4 x 4,096 batch, the loss falling,
+  and one coarse-path step, with 86,507,520 wire bytes a step, exact launch
+  counts and the frozen prefix unchanged bit for bit; each step's time is
+  split into extract, tune (forward and backward) and AdamW.
 
 Weights are random, from seeded ``torch.Generator``s. Exits non-zero on any
-failure, and without a GPU. Its last lines are the card's name and power
-limit, one JSON line with every kernel's numbers, and
-``{"ok": true, "device": {...}}``.
+failure, and without a GPU. It prints each phase's wall time. Its last lines
+are the card's name and power limit, one JSON line with every kernel's
+numbers, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -39,6 +51,7 @@ import math
 import platform
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -48,21 +61,25 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.config import HW, HapiConfig, ShapeConfig  # noqa: E402
+from repro_torch.config import HW, HapiConfig, RunConfig, ShapeConfig, TrainConfig  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.tier_split import (  # noqa: E402
     make_extract_fn, make_tune_loss_fn, plan_tiers, wire_bytes)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import int8_transfer  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_bwd_cuda, flash_attention_cuda)
 from repro_torch.kernels.int8_cases import INT8_ADVERSARIAL, int8_adversarial  # noqa: E402
 from repro_torch.kernels.int8_transfer import (  # noqa: E402
     dequantize_int8_cuda, quantize_int8_cuda)
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.launch.train import run_training  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
-from repro_torch.train.steps import build_decode_step, build_prefill_step  # noqa: E402
+from repro_torch.train import steps as train_steps  # noqa: E402
+from repro_torch.train.steps import (  # noqa: E402
+    build_decode_step, build_hapi_train_step, build_prefill_step, init_train_state)
 
 ARCH = "mistral-nemo-12b"
 BF16_TOL = 2e-2          # tests/test_kernels.py's bf16 tolerance
@@ -93,6 +110,9 @@ WIRE_BYTES = 83_886_080 + 2_621_440   # int8 codes + f32 scales of (4, 4096, 512
 KERNELS = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:128"),
+    # No TPU kernel: the JAX train step differentiates attention through XLA.
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/train/steps.py:67"),
     "quantize_int8": ("src/repro_torch/csrc/int8_transfer.cu",
                       "src/repro/kernels/int8_transfer.py:52"),
     "dequantize_int8": ("src/repro_torch/csrc/int8_transfer.cu",
@@ -101,6 +121,30 @@ KERNELS = {
                          "src/repro/kernels/decode_attention.py:101"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:106"),
 }
+# The training slice: mistral-nemo-12b at full width, cut to 8 blocks (freeze
+# index 6: 2 trainable blocks, final_norm and unembed), a batch of 4 x 4,096.
+TRAIN_LAYERS = 8
+TRAIN_FUSED_STEPS = 4
+TRAIN_LR = 1e-4
+# Launches of one train step. Fused (microbatch 2 >= COS batch 2): 2 chunks,
+# each 6 prefix forwards, 2 + 2 suffix forwards (remat reruns each block's
+# forward in the backward), 2 backwards, 1 quantize, 1 dequantize. Coarse
+# (microbatch 1 < COS batch 2): extraction over 2 microbatches (12 prefix
+# forwards, 2 quantizes), then 4 chunks of one sample, each 1 dequantize,
+# 4 suffix forwards and 2 backwards.
+TRAIN_LAUNCHES = {
+    "fused": {"flash_attention": 2 * (6 + 4), "flash_attention_bwd": 2 * 2,
+              "quantize_int8": 2, "dequantize_int8": 2},
+    "coarse": {"flash_attention": 12 + 4 * 4, "flash_attention_bwd": 4 * 2,
+               "quantize_int8": 2, "dequantize_int8": 4},
+}
+# Card vs CPU of one train step of the 2-block full-width model, bf16 on both.
+# The loss as LOSS_TOL; the gradient norm and the first moment m (0.1 x the
+# clipped gradient) to SERVE_AGREE_TOL relative: bf16 gradients summed in f32
+# in another order. The first AdamW update is lr * g / (|g| + eps), about
+# lr * sign(g), so the updates are held by the share of elements whose signs
+# agree: a gradient element within bf16 noise of zero may flip.
+TRAIN_SIGN_AGREE = 0.95
 # Launches of one serve() call at SERVE_BATCH x SERVE_PROMPT + SERVE_TOKENS:
 # a decode-attention launch per attention sublayer per decode step, a flash
 # launch per attention sublayer of the prefill, an SSD launch per mamba layer.
@@ -341,6 +385,92 @@ def check_flash() -> dict:
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     return {"flash_attention": main}
+
+
+FLASH_BWD_CASES = [
+    # b, s, h, hkv, hd, causal, window, softcap, dtype, tol
+    (2, 4096, 32, 8, 128, True, None, None, torch.bfloat16, BF16_TOL),   # the path's shape
+    (1, 1000, 8, 2, 128, True, 100, 50.0, torch.bfloat16, BF16_TOL),     # window + softcap
+    (1, 4096, 16, 8, 256, True, 1024, 50.0, torch.bfloat16, BF16_TOL),   # gemma2 local
+    (2, 777, 8, 2, 64, False, None, None, torch.bfloat16, BF16_TOL),
+    (1, 333, 8, 2, 64, False, 30, None, torch.bfloat16, BF16_TOL),       # future keys admitted
+    (4, 32, 4, 2, 16, True, None, None, torch.float32, F32_TOL),        # the smoke configs
+    (4, 300, 4, 2, 16, True, 16, 50.0, torch.float32, F32_TOL),         # gemma2 smoke, local
+    (2, 257, 8, 2, 32, True, None, None, torch.float32, F32_TOL),
+    (1, 200, 4, 1, 128, True, 50, 30.0, torch.float32, F32_TOL),
+]
+
+
+def flash_bwd_bound(b, s, h, hkv, hd, causal, window, itemsize):
+    """Bytes: q, k, v, o, dO read and dq, dk, dv written once, the
+    log-sum-exp read once; operations: five products of 2 hd FLOP per live
+    (query, key) pair and head (S, dP, dV, dK, dQ), at the bf16 peak."""
+    nbytes = (5 * b * s * h * hd + 4 * b * s * hkv * hd) * itemsize + 4 * b * h * s
+    return bound(nbytes, 10 * hd * b * h * live_pairs(s, causal, window), HW.peak_flops_bf16)
+
+
+def check_flash_bwd() -> dict:
+    """The backward kernel's dq, dk, dv (and the forward's log-sum-exp)
+    against the plain versions, measured as check_flash measures the
+    forward; then its time at the path's shape beside its bound and SDPA's
+    backward (SDPA's forward plus backward less its forward, eager, CUDA
+    events)."""
+    main = None
+    for b, s, h, hkv, hd, causal, window, cap, dt, tol in FLASH_BWD_CASES:
+        q = randn((b, s, h, hd), dt, seed=11)
+        k = randn((b, s, hkv, hd), dt, seed=12)
+        v = randn((b, s, hkv, hd), dt, seed=13)
+        do = randn((b, s, h, hd), dt, seed=14)
+        mask = dict(causal=causal, window=window, softcap=cap)
+        out, lse = flash_attention_cuda(q, k, v, lse=True, **mask)
+        rep = h // hkv
+        _, exp_lse = ref.flash_attention_lse(q, ops.repeat_kv(k, rep), ops.repeat_kv(v, rep),
+                                             **mask)
+        torch.testing.assert_close(lse, exp_lse, atol=tol, rtol=tol)
+        lse_err = float((lse - exp_lse).abs().max())
+        del exp_lse
+        grads = flash_attention_bwd_cuda(q, k, v, out, lse, do, **mask)
+        want = ref.flash_attention_bwd(q, k, v, do, **mask)
+        errs = []
+        for name, got, exp in zip(("dq", "dk", "dv"), grads, want):
+            errs.append(float((got.float() - exp.float()).abs().max()))
+            torch.testing.assert_close(got.float(), exp.float(), atol=tol, rtol=tol,
+                                       msg=f"flash_attention_bwd {name}")
+        log(f"flash_bwd B={b} S={s} H={h} Hkv={hkv} hd={hd} causal={causal} window={window} "
+            f"softcap={cap} {str(dt)[6:]}: max abs err dq {errs[0]:.3g} dk {errs[1]:.3g} "
+            f"dv {errs[2]:.3g}, lse {lse_err:.3g} (tol {tol:g})")
+        del grads, want
+        free()
+        if main is None:
+            fb, fby = flash_bwd_bound(b, s, h, hkv, hd, causal, window, q.element_size())
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+            dot = do.transpose(1, 2)
+
+            def sdpa_fwd():
+                with torch.no_grad():
+                    sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+            def sdpa_fwd_bwd():
+                torch.autograd.grad(sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
+                                    (qt, kt, vt), dot)
+
+            lib_fwd = time_ms(sdpa_fwd, 10)
+            lib_both = time_ms(sdpa_fwd_bwd, 10)
+            main = dict(
+                max_abs_err=max(errs),
+                ms=device_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do), 10),
+                plain_ms=time_ms(lambda: ref.flash_attention_bwd(q, k, v, do), 1, 1),
+                bound_ms=fb, bound_by=fby, library_ms=lib_both - lib_fwd)
+            log(f"flash_attention_bwd (2 x 4096, 32/8 heads, hd 128, causal, bf16): "
+                f"{main['ms']:.4f} ms, plain {main['plain_ms']:.4f} ms, bound "
+                f"{main['bound_ms']:.4f} ms ({fby}), scaled_dot_product_attention backward "
+                f"{main['library_ms']:.4f} ms (forward + backward {lib_both:.4f} less forward "
+                f"{lib_fwd:.4f}, eager)")
+            del qt, kt, vt, dot
+        del q, k, v, do, out, lse
+        free()
+    return {"flash_attention_bwd": main}
 
 
 DECODE_CASES = [
@@ -747,22 +877,230 @@ def serve_models() -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: training
+# ---------------------------------------------------------------------------
+def _train_state(lm, rc: RunConfig, plan):
+    state = init_train_state(lm, rc, plan)
+    return state, build_hapi_train_step(lm, rc, plan)
+
+
+def check_full_width_training() -> None:
+    """One Hapi train step of a 2-block full-width mistral-nemo-12b in bf16
+    on the card (kernels) and on the CPU (plain versions), from the same
+    weights: loss, gradient norm, first moment and the updates agree."""
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=2)
+    shape = ShapeConfig("agree", "train", seq_len=128, global_batch=2)
+    hapi = HapiConfig(compress_transfer=True, cos_batch=1, cos_batch_min=1)
+    rc = RunConfig(model=cfg, shape=shape, hapi=hapi,
+                   train=TrainConfig(microbatch=2, learning_rate=TRAIN_LR, warmup_steps=1,
+                                     total_steps=5))
+    plan = plan_tiers(cfg, shape, hapi)
+    check((plan.split, plan.cos_batch) == (1, 1), f"2-block train plan {plan}")
+    lm_gpu = build_model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(3))
+    lm_cpu = copy.deepcopy(lm_gpu).cpu()
+    toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 128))
+    out = {}
+    for dev, lm in (("cuda", lm_gpu), ("cpu", lm_cpu)):
+        t = torch.from_numpy(toks).to(dev)
+        state, step = _train_state(lm, rc, plan)
+        before = {k: p.detach().float().cpu() for k, p in state.trainable.named_parameters()}
+        t0 = time.perf_counter()
+        state, metrics = step(state, {"tokens": t, "labels": t})
+        loss = float(metrics["loss"])
+        out[dev] = dict(loss=loss, gnorm=float(metrics["grad_norm"]),
+                        m={k: x.float().cpu() for k, x in state.opt.m.items()},
+                        delta={k: p.detach().float().cpu() - before[k]
+                               for k, p in state.trainable.named_parameters()})
+        log(f"full width train step, 2 blocks, batch 2 x 128 on {dev}: loss {loss:.6f}, "
+            f"grad norm {out[dev]['gnorm']:.6g} ({time.perf_counter() - t0:.1f} s)")
+        del state, step
+    c, h = out["cuda"], out["cpu"]
+    loss_diff = abs(c["loss"] - h["loss"])
+    gn_err = abs(c["gnorm"] - h["gnorm"]) / h["gnorm"]
+    m_err = max(rel_err(c["m"][k], h["m"][k]) for k in h["m"])
+    signs = torch.cat([(torch.sign(c["delta"][k]) == torch.sign(h["delta"][k])).flatten()
+                       for k in h["delta"]]).float().mean().item()
+    log(f"full width train step agreement, card vs cpu: |loss| {loss_diff:.3g} (tol "
+        f"{LOSS_TOL:g}), grad norm relative {gn_err:.3g} (tol {SERVE_AGREE_TOL:g}), first "
+        f"moment relative L2 (worst tensor) {m_err:.3g} (tol {SERVE_AGREE_TOL:g}), update "
+        f"signs agree in {signs:.5f} of elements (at least {TRAIN_SIGN_AGREE:g})")
+    check(math.isfinite(c["loss"]) and loss_diff <= LOSS_TOL, "train step: losses disagree")
+    check(gn_err <= SERVE_AGREE_TOL, "train step: grad norms disagree")
+    check(m_err <= SERVE_AGREE_TOL, "train step: gradients disagree")
+    check(signs >= TRAIN_SIGN_AGREE, "train step: updates disagree")
+    del lm_gpu, lm_cpu, out
+    free()
+
+
+class StepClock:
+    """Wraps the train step's extract and AdamW (looked up in
+    ``repro_torch.train.steps`` at each step) to time them, synchronised, and
+    to count the wire bytes extract emits; tune is the rest of the step."""
+
+    def __init__(self):
+        self.extract_fn = train_steps.make_extract_fn
+        self.adamw = train_steps.adamw_update
+        self.reset()
+
+    def reset(self):
+        self.extract_s = self.adamw_s = 0.0
+        self.wire = 0
+
+    def _timed(self, fn, attr):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            setattr(self, attr, getattr(self, attr) + time.perf_counter() - t0)
+            if attr == "extract_s":
+                self.wire += wire_bytes(out)
+            return out
+        return run
+
+    def __enter__(self):
+        train_steps.make_extract_fn = lambda plan: self._timed(self.extract_fn(plan),
+                                                               "extract_s")
+        train_steps.adamw_update = self._timed(self.adamw, "adamw_s")
+        return self
+
+    def __exit__(self, *exc):
+        train_steps.make_extract_fn = self.extract_fn
+        train_steps.adamw_update = self.adamw
+
+
+def train_slice() -> dict:
+    """The training main path at full width: mistral-nemo-12b cut to 8
+    blocks, bf16, a batch of 4 x 4,096; 4 fused-path steps on one repeated
+    batch, then 1 coarse-path step. Returns the launches of each kernel."""
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=TRAIN_LAYERS)
+    shape = ShapeConfig("train", "train", seq_len=4096, global_batch=4)
+    hapi = HapiConfig(compress_transfer=True, cos_batch=2, cos_batch_min=1)
+    tc = TrainConfig(microbatch=2, learning_rate=TRAIN_LR, warmup_steps=1, total_steps=5)
+    rc = RunConfig(model=cfg, shape=shape, hapi=hapi, train=tc)
+    plan = plan_tiers(cfg, shape, hapi)
+    log(f"train plan: split {plan.split} of {cfg.n_blocks} blocks, cos_batch {plan.cos_batch}, "
+        f"compress {plan.compress}; {plan.decision.reason}")
+    check((plan.split, plan.cos_batch, plan.compress) == (6, 2, True), "unexpected train plan")
+    free()
+    lm = build_model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    state, step = _train_state(lm, rc, plan)
+    n_train = sum(p.numel() for p in state.trainable.parameters())
+    frozen0 = {k: v.cpu() for k, v in state.frozen.state_dict().items()}
+    toks = torch.from_numpy(
+        np.random.default_rng(200).integers(0, cfg.vocab_size, (4, 4096))).cuda()
+    batch = {"tokens": toks, "labels": toks}
+    log(f"{ARCH} at {TRAIN_LAYERS} blocks: {n_train} trainable parameters (2 blocks, "
+        f"final_norm, unembed), {sum(v.numel() for v in frozen0.values())} frozen")
+    losses = []
+    total = dict.fromkeys(KERNELS, 0)
+    ops.reset_launch_counts()
+    with StepClock() as clock:
+        for i, kind in enumerate(["fused"] * TRAIN_FUSED_STEPS + ["coarse"]):
+            if kind == "coarse":
+                rc = rc.replace(train=dataclasses.replace(tc, microbatch=1))
+                step = build_hapi_train_step(lm, rc, plan)
+            clock.reset()
+            before = ops.launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            loss = float(metrics["loss"])
+            step_s = time.perf_counter() - t0
+            rose = {k: v - before[k] for k, v in ops.launch_counts().items()}
+            want = {k: TRAIN_LAUNCHES[kind].get(k, 0) for k in rose}
+            log(f"train step {i + 1} ({kind}): {1e3 * step_s:.1f} ms (extract "
+                f"{1e3 * clock.extract_s:.1f}, tune forward+backward "
+                f"{1e3 * (step_s - clock.extract_s - clock.adamw_s):.1f}, AdamW "
+                f"{1e3 * clock.adamw_s:.1f}), loss {loss:.6f}, grad norm "
+                f"{float(metrics['grad_norm']):.4g}, lr {float(metrics['lr']):.3g}, wire "
+                f"{clock.wire} bytes, peak device memory {torch.cuda.max_memory_allocated()} "
+                f"bytes, launches {rose}")
+            check(math.isfinite(loss), f"train step {i + 1}: loss {loss}")
+            check(clock.wire == WIRE_BYTES, f"train step {i + 1}: wire {clock.wire}")
+            check(rose == want, f"train step {i + 1}: launches {rose}, expected {want}")
+            losses.append(loss)
+    check(losses[TRAIN_FUSED_STEPS - 1] < losses[0], f"loss did not fall: {losses}")
+    check(int(state.opt.step) == TRAIN_FUSED_STEPS + 1, "optimizer step count")
+    same = all(torch.equal(v.cpu(), frozen0[k]) for k, v in state.frozen.state_dict().items())
+    log(f"train: losses {[round(x, 6) for x in losses]}; frozen prefix unchanged bit for bit: "
+        f"{same}")
+    check(same, "the frozen prefix changed")
+    for k, v in ops.launch_counts().items():
+        total[k] += v
+    del lm, state, step, frozen0, batch
+    free()
+    return total
+
+
+def train_defaults() -> None:
+    """tests/test_e2e_smoke.py's three scenarios through run_training on the
+    card (the smoke configs: f32, head dim 16); and mamba2's suffix, whose
+    SSD kernel has no backward yet, refuses to train with a clear error."""
+    out = run_training("qwen3-32b", steps=12, batch=8, seq=32, lr=1e-3, log_every=100)
+    first, last = np.mean(out["losses"][:3]), np.mean(out["losses"][-3:])
+    log(f"run_training qwen3-32b on the card: losses {[round(x, 4) for x in out['losses']]}")
+    check(np.isfinite(out["final_loss"]) and last < first, "qwen3-32b: loss did not fall")
+    kw = dict(steps=10, batch=4, seq=32, lr=1e-3, log_every=100)
+    ref_run = run_training("gemma2-9b", ckpt_dir="", **kw)
+    with tempfile.TemporaryDirectory() as d:
+        run_training("gemma2-9b", ckpt_dir=d, ckpt_every=3, kill_at=6, **kw)
+        resumed = run_training("gemma2-9b", ckpt_dir=d, ckpt_every=3, **kw)
+    gap = abs(resumed["final_loss"] - ref_run["final_loss"])
+    log(f"run_training gemma2-9b on the card: crash at 6, resume from step 6: final loss "
+        f"{resumed['final_loss']:.6f} against {ref_run['final_loss']:.6f} uninterrupted "
+        f"(|gap| {gap:.3g}, tol 0.2)")
+    check(gap < 0.2, "gemma2-9b: the resumed run diverged")
+    out = run_training("mistral-nemo-12b", steps=8, batch=8, seq=32, compress=True, lr=1e-3,
+                       log_every=100)
+    log(f"run_training mistral-nemo-12b (int8 boundary) on the card: losses "
+        f"{[round(x, 4) for x in out['losses']]}")
+    check(np.isfinite(out["final_loss"]) and out["losses"][-1] < out["losses"][0] + 0.05,
+          "mistral-nemo-12b: the compressed boundary did not train")
+    try:
+        run_training("mamba2-1.3b", steps=1, batch=2, seq=32, log_every=100)
+    except RuntimeError as e:
+        check("SSD kernel has no backward" in str(e), f"mamba2: unexpected error {e}")
+        log(f"run_training mamba2-1.3b on the card refuses, as it should: {e}")
+    else:
+        check(False, "mamba2-1.3b trained on the card without an SSD backward")
+    free()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     smi = environment()
     log(f"build: {_build.build():.1f} s ({', '.join(_build.SOURCES)})")
-    kernels = {**check_flash(), **check_int8(), **check_decode(), **check_ssd()}
-    check_full_width()
-    check_full_width_serving()
-    serve_defaults()
-    pushdown = serve_slice()
+    phases = {}
+
+    def phase(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        phases[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    kernels = {}
+    for name, fn in (("flash", check_flash), ("flash_bwd", check_flash_bwd), ("int8", check_int8),
+                     ("decode", check_decode), ("ssd", check_ssd)):
+        kernels.update(phase(name, fn))
+    phase("full_width", check_full_width)
+    phase("full_width_training", check_full_width_training)
+    phase("full_width_serving", check_full_width_serving)
+    phase("serve_defaults", serve_defaults)
+    phase("train_defaults", train_defaults)
+    pushdown = phase("pushdown", serve_slice)
     free()
-    served = serve_models()
-    launches = {name: pushdown[name] + served[name] for name in KERNELS}
-    log(f"launches: pushdown {pushdown}, serving {served}")
+    served = phase("serving", serve_models)
+    trained = phase("training", train_slice)
+    launches = {name: pushdown[name] + served[name] + trained[name] for name in KERNELS}
+    log(f"launches: pushdown {pushdown}, serving {served}, training {trained}")
+    log(f"phase wall seconds {phases}; total {time.perf_counter() - t_start:.1f} s")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main paths")
     line = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,16 +1,21 @@
 """Configuration of the PyTorch port.
 
-A copy of the parts of ``repro/config.py`` that the forward pushdown path
-reads (the port imports nothing of ``repro``):
+A copy of the parts of ``repro/config.py`` that the pushdown, serving and
+training paths read (the port imports nothing of ``repro``):
   * ``ModelConfig``   — one per architecture (see ``repro_torch.configs``).
   * ``ShapeConfig``   — the input shape of a job.
+  * ``MeshSpec``      — a device mesh, kept as plain data: no port path reads
+    it until the collectives slice.
   * ``HapiConfig``    — knobs of the paper's technique (split/batch-adapt).
+  * ``TrainConfig``   — optimizer and step settings; ``RunConfig`` joins them.
   * ``HW``            — NVIDIA H100 SXM roofline constants.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+import dataclasses
+import math
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
 
 
 # ---------------------------------------------------------------------------
@@ -211,6 +216,33 @@ class ShapeConfig:
 
 
 # ---------------------------------------------------------------------------
+# Mesh specification (plain data until the collectives slice)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class MeshSpec:
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+
+    @property
+    def n_devices(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in self.axes if a in ("pod", "data"))
+
+    @property
+    def model_axis(self) -> str:
+        return "model"
+
+    def axis_size(self, name: str) -> int:
+        return self.shape[self.axes.index(name)]
+
+
+SINGLE_POD = MeshSpec((16, 16), ("data", "model"))
+
+
+# ---------------------------------------------------------------------------
 # Hapi (paper technique) configuration
 # ---------------------------------------------------------------------------
 @dataclass(frozen=True)
@@ -232,3 +264,35 @@ class HapiConfig:
     compress_transfer: bool = False           # int8 per-tile quantization
     # Beyond-paper: split candidates are block boundaries (always on).
     collective_aware: bool = True
+
+
+# ---------------------------------------------------------------------------
+# Training configuration
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.01
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    microbatch: int = 0                       # 0 -> whole per-device batch at once
+    remat: str = "block"                      # none | block | full
+    opt_state_dtype: str = "float32"          # grok overrides to bfloat16
+    zero_sharding: bool = True                # shard optimizer states over data axis
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    mesh: MeshSpec = SINGLE_POD
+    hapi: HapiConfig = field(default_factory=HapiConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)

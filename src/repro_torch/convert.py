@@ -21,14 +21,24 @@ Shapes are unchanged, and so are the words a name-based weight-decay mask
 reads ("norm", "scale", "bias", "ln"; ``repro/optim/adamw.py``
 ``_decay_mask``). bfloat16 arrays go through float32, which is exact, so
 the port needs no bfloat16 support in numpy; ``params_to_jax`` returns
-bfloat16 tensors as float32 arrays for the same reason.
+bfloat16 tensors as float32 arrays for the same reason. ``params_to_tree``
+gives the same nested dict with torch tensors as leaves (the checkpoints
+write it), and ``params_from_jax`` also takes such a tree.
+
+``train_state_from_jax`` and ``train_state_to_jax`` carry a whole train
+state, ``TrainState(frozen, trainable, OptState(m, v, step))`` of the JAX
+package, across: the moments are trees of the trainable part's structure.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.models.transformer import build_lm
+from repro_torch.optim.adamw import OptState
+from repro_torch.train.steps import TrainState
 
 BLOCKS = "blocks"
 
@@ -45,6 +55,8 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 
 def _to_torch(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().clone()
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(torch.bfloat16)
@@ -58,8 +70,20 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
+def _nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, leaf in flat.items():
+        node = tree
+        parts = key.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+    return tree
+
+
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """A state_dict (CPU tensors) from a JAX parameter tree of numpy arrays."""
+    """A state_dict (CPU tensors) from a JAX parameter tree of numpy (or
+    torch) arrays."""
     sd: Dict[str, torch.Tensor] = {}
     for key, node in tree.items():
         if key == BLOCKS:
@@ -67,7 +91,8 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             n = len(next(iter(flat.values())))
             for i in range(n):
                 for path, a in flat.items():
-                    sd[f"{BLOCKS}.{i}.{path}"] = _to_torch(np.asarray(a)[i])
+                    leaf = a[i] if isinstance(a, torch.Tensor) else np.asarray(a)[i]
+                    sd[f"{BLOCKS}.{i}.{path}"] = _to_torch(leaf)
         elif isinstance(node, Mapping):
             sd.update({k: _to_torch(a) for k, a in _flatten(node, key).items()})
         else:
@@ -75,28 +100,59 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-    """The inverse of ``params_from_jax``: a nested dict of numpy arrays with
-    the blocks restacked on a leading axis."""
-    tree: Dict[str, Any] = {}
-    per_block: Dict[int, Dict[str, np.ndarray]] = {}
+def params_to_tree(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The JAX parameter tree of a state_dict, with the blocks restacked on
+    a leading axis; the leaves are torch tensors on the state_dict's device."""
+    flat: Dict[str, torch.Tensor] = {}
+    per_block: Dict[int, Dict[str, torch.Tensor]] = {}
     for key, t in state_dict.items():
         parts = key.split(".")
         if parts[0] == BLOCKS:
-            per_block.setdefault(int(parts[1]), {})[".".join(parts[2:])] = _to_numpy(t)
-            continue
-        node = tree
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = _to_numpy(t)
+            per_block.setdefault(int(parts[1]), {})[".".join(parts[2:])] = t.detach()
+        else:
+            flat[key] = t.detach()
+    tree = _nest(flat)
     if per_block:
-        blocks: Dict[str, Any] = {}
-        for path in per_block[0]:
-            stacked = np.stack([per_block[i][path] for i in range(len(per_block))])
-            node = blocks
-            parts = path.split(".")
-            for p in parts[:-1]:
-                node = node.setdefault(p, {})
-            node[parts[-1]] = stacked
-        tree[BLOCKS] = blocks
+        tree[BLOCKS] = _nest({path: torch.stack([per_block[i][path]
+                                                 for i in range(len(per_block))])
+                              for path in per_block[0]})
     return tree
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of ``params_from_jax``: a nested dict of numpy arrays with
+    the blocks restacked on a leading axis."""
+    return _tree_map(_to_numpy, params_to_tree(state_dict))
+
+
+def train_state_from_jax(state, cfg, *, device="cpu"):
+    """The port's ``TrainState`` from a JAX one (or any ``(frozen, trainable,
+    (m, v, step))`` of parameter trees). The model is built on ``device`` and
+    its weights replaced by the state's; the split is the frozen part's
+    number of blocks."""
+    frozen_tree, trainable_tree, (m, v, step) = state
+    split = len(next(iter(_flatten(frozen_tree[BLOCKS]).values())))
+    lm = build_lm(cfg, device=device, generator=torch.Generator(device).manual_seed(0))
+    frozen, trainable = lm.split_params(split)
+    frozen.load_state_dict(params_from_jax(frozen_tree))
+    trainable.load_state_dict(params_from_jax(trainable_tree))
+    frozen.requires_grad_(False)
+    opt = OptState({k: t.to(device) for k, t in params_from_jax(m).items()},
+                   {k: t.to(device) for k, t in params_from_jax(v).items()},
+                   torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device))
+    return TrainState(frozen, trainable, opt)
+
+
+def train_state_to_jax(state) -> Tuple[Dict[str, Any], Dict[str, Any], Tuple]:
+    """``(frozen, trainable, (m, v, step))`` as numpy trees of the JAX
+    package's structure (bfloat16 as float32), for
+    ``TrainState(frozen, trainable, OptState(m, v, step))`` there."""
+    frozen, trainable, opt = state
+    return (params_to_jax(frozen.state_dict()), params_to_jax(trainable.state_dict()),
+            (params_to_jax(opt.m), params_to_jax(opt.v), np.int32(int(opt.step))))

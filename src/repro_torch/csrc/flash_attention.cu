@@ -11,7 +11,9 @@
 // window kpos > qpos - window - 1), in the order of the reference; P is cast to
 // V's type before P.V; l is clamped to 1e-30; the output has q's type. With
 // causal off and a window set, future keys are admitted, as in
-// src/repro/kernels/ref.py. There is no backward.
+// src/repro/kernels/ref.py. Given a pointer, it also writes each row's
+// log-sum-exp, in base 2 ((B, H, S) f32), for the backward in
+// flash_attention_bwd.cu; with a null pointer it writes nothing more.
 //
 // What bounds it on an H100: tensor-core operations. A causal launch at the
 // storage tier's shape (B=2, S=4096, H=32, hd=128) needs 4*hd*B*H*S(S+1)/2
@@ -47,8 +49,8 @@
 // reaches it, the f32 smoke configs (head dim 16) do.
 //
 // C interface: flash_attention_fwd returns cudaGetLastError() after its
-// launch, or an error code without launching. dtype codes: 0 = float32,
-// 1 = bfloat16. head_dim 64, 128 or 256 in bf16; also 16 and 32 in f32.
+// launch, or an error code without launching; lse may be null. dtype codes:
+// 0 = float32, 1 = bfloat16. head_dim 64, 128 or 256 in bf16; also 16 and 32 in f32.
 
 #include <cuda.h>  // CUtensorMap; the encoder itself comes from the runtime
 #include <cuda_bf16.h>
@@ -66,6 +68,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;     // (B, H, S) base-2 log-sum-exp, or null
   int B, S, H, Hkv;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;  // element strides
   int causal;
@@ -537,6 +540,12 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 
   l0 = fmaxf(l0, 1e-30f);
   l1 = fmaxf(l1, 1e-30f);
+  // The base-2 log-sum-exp of each row, for the backward: m is in base 2.
+  if (p.lse != nullptr && t4 == 0) {
+    float* lg = p.lse + (static_cast<long long>(b) * p.H + h) * p.S;
+    if (qpos0 < p.S) lg[qpos0] = m0 + log2f(l0);
+    if (qpos1 < p.S) lg[qpos1] = m1 + log2f(l1);
+  }
   const long long o_ss = static_cast<long long>(p.H) * HD;
   bf16* og = static_cast<bf16*>(p.o) + (static_cast<long long>(b) * p.S * p.H + h) * HD;
 #pragma unroll
@@ -639,6 +648,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
   }
 
   l = fmaxf(l, 1e-30f);
+  // The base-2 log-sum-exp of each row, for the backward (m is in base e here).
+  if (p.lse != nullptr && r < q_rows && c4 == 0)
+    p.lse[(static_cast<long long>(b) * p.H + h) * p.S + qpos] = (m + logf(l)) * kLog2e;
   if (r < q_rows) {
     float* og = static_cast<float*>(p.o) +
                 ((static_cast<long long>(b) * p.S + qpos) * p.H + h) * HD;
@@ -740,7 +752,7 @@ int launch_bf16(const Params& p, cudaStream_t stream) {
 }  // namespace
 
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int B, int S, int H, int Hkv, int hd,
+                                   float* lse, int dtype, int B, int S, int H, int Hkv, int hd,
                                    long long q_sb, long long q_ss, long long q_sh,
                                    long long k_sb, long long k_ss, long long k_sh,
                                    long long v_sb, long long v_ss, long long v_sh,
@@ -748,8 +760,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{q,    k,    v,    o,    B,    S,    H,      Hkv,     q_sb,    q_ss,  q_sh, k_sb,
-                 k_ss, k_sh, v_sb, v_ss, v_sh, causal, window, softcap, scale};
+  const Params p{q,    k,    v,    o,    lse,  B,    S,      H,      Hkv,     q_sb,  q_ss,
+                 q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, window, softcap, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool cap = softcap > 0.f;
   if (dtype == 1) {

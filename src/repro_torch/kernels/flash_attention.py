@@ -1,4 +1,4 @@
-"""Forward flash attention: the wrapper of the CUDA kernel.
+"""Flash attention: the wrappers of the forward and backward CUDA kernels.
 
 Counterpart of ``repro/kernels/flash_attention.py``. The kernel is in
 ``csrc/flash_attention.cu``: online softmax over the KV tiles that the
@@ -14,8 +14,14 @@ layout and takes K and V with ``H`` heads or with ``Hkv`` heads where
 tensor, say) as long as the last stride is 1 and rows are 16-byte aligned,
 which is what TMA needs.
 
-Forward only: where autograd is on, the wrapper raises on an input that
-requires grad rather than hide the kernel behind a differentiable fallback.
+Given ``lse=True`` the forward also returns each row's log-sum-exp in base
+2, ``(B, H, S)`` f32. ``flash_attention_bwd_cuda`` wraps the backward kernel
+of ``csrc/flash_attention_bwd.cu`` (which the TPU package does not have: XLA
+differentiates its attention), and ``FlashAttentionFn`` joins the two under
+autograd, saving q, k, v, the output and the log-sum-exp; on CPU tensors it
+runs the plain versions in ``ref``. ``flash_attention_cuda`` itself still
+raises on an input that requires grad where autograd is on, rather than
+return a result that autograd cannot differentiate.
 """
 from __future__ import annotations
 
@@ -26,16 +32,23 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ref
 
 HEAD_DIMS = (64, 128, 256)              # the bf16 kernel's
 F32_HEAD_DIMS = (16, 32, 64, 128, 256)  # the f32 kernel's
 _SIGNATURES = {
     "flash_attention_fwd": (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
         + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
         ctypes.c_int),
     "flash_attention_tile": ([ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4,
                              ctypes.c_int),
+}
+_BWD_SIGNATURES = {
+    "flash_attention_bwd": (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+        ctypes.c_int),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -47,6 +60,7 @@ SMEM_LIMIT = 232_448     # dynamic shared memory a block may use on an H100
 N_BARRIERS = 3 + 3 * STAGES   # Q full; K full, V full, empty per stage; two turns
 
 launches = 0
+bwd_launches = 0
 
 
 def tile_config(hd: int) -> tuple:
@@ -66,10 +80,9 @@ def softmax_scale(hd: int) -> float:
     return float(1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32)))
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True, window: Optional[int] = None,
-                         softcap: Optional[float] = None) -> torch.Tensor:
-    global launches
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[int],
+           softcap: Optional[float]) -> None:
+    """The checks both kernels share: shapes, heads, dtype, head dim, mask."""
     b, s, h, hd = q.shape
     if k.shape != v.shape or k.dim() != 4 or k.shape[0] != b or k.shape[1] != s \
             or k.shape[3] != hd:
@@ -88,30 +101,119 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window must be >= 0, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
+
+
+def _launch(fn, q: torch.Tensor, args: tuple) -> int:
+    if q.device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(q.device):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, window: Optional[int] = None,
+                         softcap: Optional[float] = None, lse: bool = False):
+    """The output (B, S, H, hd) in q's dtype, and with ``lse`` also the
+    base-2 log-sum-exp (B, H, S) f32."""
+    global launches
+    _check(q, k, v, window, softcap)
+    b, s, h, hd = q.shape
+    hkv = k.shape[2]
     vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}, got {t.device}")
         if t.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError("the flash attention kernel has no backward; "
-                               f"{name} requires grad")
+            raise RuntimeError(f"{name} requires grad, and flash_attention_cuda records no "
+                               "graph: FlashAttentionFn (ops.flash_attention) pairs it with "
+                               "the backward kernel")
         if t.stride(3) != 1 or t.data_ptr() % 16 or any(st % vec for st in t.stride()[:3]):
             raise ValueError(f"{name} needs a unit last stride and 16-byte aligned rows")
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    lse_t = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse_t) if lse else out
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse_t.data_ptr() if lse else None,
             _DTYPE_CODE[q.dtype], b, s, h, hkv, hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             int(causal), -1 if window is None else int(window),
             0.0 if softcap is None else float(softcap), softmax_scale(hd))
-    fwd = _build.load("flash_attention", _SIGNATURES).flash_attention_fwd
-    if q.device.index == torch.cuda.current_device():
-        rc = fwd(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(q.device):
-            rc = fwd(*args, torch.cuda.current_stream().cuda_stream)
+    rc = _launch(_build.load("flash_attention", _SIGNATURES).flash_attention_fwd, q, args)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel failed: CUDA error {rc}")
     launches += 1
-    return out
+    return (out, lse_t) if lse else out
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool = True, window: Optional[int] = None,
+                             softcap: Optional[float] = None):
+    """(dq, dk, dv) of the forward that gave ``out`` and ``lse`` from q, k,
+    v with the same mask; dk and dv have k's Hkv heads, each the sum over its
+    group of query heads. Views are made contiguous: the kernel reads packed
+    tensors."""
+    global bwd_launches
+    _check(q, k, v, window, softcap)
+    b, s, h, hd = q.shape
+    hkv = k.shape[2]
+    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, h, s):
+        raise ValueError(f"out {tuple(out.shape)}, dout {tuple(dout.shape)}, lse "
+                         f"{tuple(lse.shape)} do not match q {tuple(q.shape)}")
+    if out.dtype != q.dtype or dout.dtype != q.dtype or lse.dtype != torch.float32:
+        raise TypeError(f"out and dout must have q's dtype {q.dtype} and lse float32, got "
+                        f"{out.dtype}, {dout.dtype}, {lse.dtype}")
+    tensors = [t.contiguous() for t in (q, k, v, out, dout, lse)]
+    for name, t in zip(("q", "k", "v", "out", "dout", "lse"), tensors):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {q.device}, got {t.device}")
+    dq = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, s, hkv, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, s, hkv, hd), dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq, dk, dv
+    dsum = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    args = (*(t.data_ptr() for t in tensors), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), _DTYPE_CODE[q.dtype], b, s, h, hkv, hd, int(causal),
+            -1 if window is None else int(window), 0.0 if softcap is None else float(softcap),
+            softmax_scale(hd))
+    rc = _launch(_build.load("flash_attention_bwd", _BWD_SIGNATURES).flash_attention_bwd, q,
+                 args)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel failed: CUDA error {rc}")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention under autograd: the forward kernel, which also writes
+    the log-sum-exp, then the backward kernel. Remat reruns ``forward``, which
+    recomputes the log-sum-exp with the output. CPU tensors take the plain
+    versions (``ref.flash_attention_lse``, ``ref.flash_attention_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        if q.is_cuda:
+            out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                            softcap=softcap, lse=True)
+        else:
+            rep = q.shape[2] // k.shape[2]
+            out, lse = ref.flash_attention_lse(q, k.repeat_interleave(rep, dim=2),
+                                               v.repeat_interleave(rep, dim=2), causal=causal,
+                                               window=window, softcap=softcap)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, softcap = ctx.mask
+        if q.is_cuda:
+            grads = flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=causal,
+                                             window=window, softcap=softcap)
+        else:
+            grads = ref.flash_attention_bwd(q, k, v, dout, causal=causal, window=window,
+                                            softcap=softcap)
+        return (*grads, None, None, None)

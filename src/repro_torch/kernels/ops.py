@@ -3,7 +3,10 @@
 Counterpart of ``repro/kernels/ops.py``. A tensor on the CPU takes the plain
 PyTorch version in ``ref``; a CUDA tensor takes the hand-written kernel, and
 a kernel that cannot take it raises. There is no backend toggle and no
-fallback from the kernel to the plain version.
+fallback from the kernel to the plain version. Under autograd, flash
+attention runs as ``FlashAttentionFn`` with its backward kernel; the decode
+and SSD kernels have no backward and their wrappers raise on an input that
+requires grad (the SSD backward is a later slice's).
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ def launch_counts() -> Dict[str, int]:
     """Launches of each kernel since the last reset."""
     return {
         "flash_attention": fk.launches,
+        "flash_attention_bwd": fk.bwd_launches,
         "quantize_int8": ik.quantize_launches,
         "dequantize_int8": ik.dequantize_launches,
         "decode_attention": dk.launches,
@@ -51,6 +55,7 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     fk.launches = 0
+    fk.bwd_launches = 0
     ik.quantize_launches = 0
     ik.quantize_routes.update(vector=0, scalar=0)
     ik.dequantize_launches = 0
@@ -68,7 +73,11 @@ def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
-    """q (B, S, H, hd); k, v (B, S, Hkv, hd) with Hkv dividing H."""
+    """q (B, S, H, hd); k, v (B, S, Hkv, hd) with Hkv dividing H. Where
+    autograd is on and an input requires grad, ``FlashAttentionFn`` (the
+    forward kernel with its log-sum-exp, then the backward kernel)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return fk.FlashAttentionFn.apply(q, k, v, causal, window, softcap)
     if q.is_cuda:
         return fk.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                        softcap=softcap)

@@ -23,11 +23,23 @@ def flash_attention(
     window: Optional[int] = None,
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
-    b, s, h, hd = q.shape
+    scores, _, _ = _scores(q, k, causal, window, softcap)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
+    return out.to(q.dtype)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, window: Optional[int],
+            softcap: Optional[float]):
+    """Scaled, soft-capped, masked f32 scores (B, H, S, S) of q (B, S, H, hd)
+    against k with H heads, the live mask, and the soft-cap's tanh (or None)."""
+    s, hd = q.shape[1], q.shape[3]
     scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32, device=q.device))
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    th = None
     if softcap is not None:
-        scores = softcap * torch.tanh(scores / softcap)
+        th = torch.tanh(scores / softcap)
+        scores = softcap * th
     qpos = torch.arange(s, device=q.device)[:, None]
     kpos = torch.arange(s, device=q.device)[None, :]
     mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
@@ -35,10 +47,50 @@ def flash_attention(
         mask &= kpos <= qpos
     if window is not None:
         mask &= kpos > qpos - window - 1
-    scores = scores.masked_fill(~mask, -1e30)
+    return scores.masked_fill(~mask, -1e30), mask, th
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None):
+    """``flash_attention`` (k, v repeated to H heads) and each row's
+    log-sum-exp of the scores in base 2, (B, H, S) f32: the kernel's
+    ``lse``, with which P = exp2(score * log2(e) - lse)."""
+    scores, _, _ = _scores(q, k, causal, window, softcap)
+    lse = torch.logsumexp(scores, dim=-1) * math.log2(math.e)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
-    return out.to(q.dtype)
+    return out.to(q.dtype), lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None, softcap: Optional[float] = None):
+    """(dq, dk, dv) of ``flash_attention`` from the explicit formulas, in
+    f32, returned in the inputs' dtype. k and v have Hkv heads dividing H
+    (query head h reads KV head h // (H // Hkv)); dk and dv sum over each
+    group. P = softmax(scores); dV = P^T dO; dP = dO V^T; D = rowsum(P * dP);
+    dS = P * (dP - D), times 1 - tanh^2 under a soft-cap;
+    dQ = dS K * scale; dK = dS^T Q * scale."""
+    b, s, h, hd = q.shape
+    hkv = k.shape[2]
+    rep = h // hkv
+    kr, vr = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+    scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32, device=q.device))
+    scores, mask, th = _scores(q, kr, causal, window, softcap)
+    p = torch.softmax(scores, dim=-1)
+    g = dout.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, g)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g, vr.float())
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    if th is not None:
+        ds = ds * (1 - th * th)
+    ds = ds * mask
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dk = dk.reshape(b, s, hkv, rep, hd).sum(3)
+    dv = dv.reshape(b, s, hkv, rep, hd).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention(

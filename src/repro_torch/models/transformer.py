@@ -28,6 +28,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
@@ -206,9 +207,17 @@ def _lm_loss(logits: torch.Tensor, batch: dict) -> torch.Tensor:
 
 
 def _run_blocks(blocks: Iterable[Block], h: torch.Tensor) -> torch.Tensor:
+    """Under autograd each block is rematerialised, as the JAX model's
+    ``remat_name = "block"``: only its input is kept, and its forward runs
+    again in the backward. The blocks draw no random numbers, so the RNG
+    state is not saved."""
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     for block in blocks:
-        h = block(h, positions)
+        if torch.is_grad_enabled() and (
+                h.requires_grad or any(p.requires_grad for p in block.parameters())):
+            h = checkpoint(block, h, positions, use_reentrant=False, preserve_rng_state=False)
+        else:
+            h = block(h, positions)
     return h
 
 

@@ -1,2 +1,1 @@
-"""Step builders of the port. Serving only so far; the train steps come with
-the training slice."""
+"""The train steps and the serving steps of the port."""

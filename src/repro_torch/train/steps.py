@@ -1,18 +1,161 @@
-"""Serving steps: the prefill and decode functions a server calls.
+"""Step functions: the Hapi fine-tune step, the status-quo baseline, the two
+tier steps, the forward step, and serving's prefill and decode steps.
 
-Counterpart of the serving part of ``repro/train/steps.py``. Each step runs
-under ``torch.no_grad``: serving records no graph, and the port's kernels
-have no backward. The train steps are not ported yet.
+Counterpart of ``repro/train/steps.py``. The Hapi train step is the paper's
+pipeline in one call:
+  1. extract: frozen prefix at *COS batch* granularity (a loop over
+     microbatches under ``torch.no_grad``, optional int8 boundary
+     compression) — §5.5's decoupled batch;
+  2. tune: remaining blocks + head, gradients accumulated in f32 over the
+     chunks of the training batch and divided by their number, then AdamW on
+     the trainable part only.
+
+The baseline step is the paper's status quo: one pass, one batch
+granularity, frozen prefix still excluded from grads.
+
+A ``TrainState`` holds the frozen ``Prefix`` and the trainable ``Suffix``
+modules (which share no parameter) and the optimizer state. Where the JAX
+steps return a new state, these update the trainable parameters and the
+moments in place and return a state that holds them. The functions that
+make the train steps take the model, as the JAX ones do, but the steps run
+the state's modules. Gradients come from ``torch.autograd.grad``, so no
+``.grad`` is left on a parameter. The serving steps run under
+``torch.no_grad``.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, Iterator, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.models.transformer import LM
+from repro_torch.config import RunConfig
+from repro_torch.core.tier_split import Acts, TierPlan, make_extract_fn, make_tune_loss_fn
+from repro_torch.models.transformer import LM, Prefix, Suffix, merge_params
+from repro_torch.optim.adamw import OptState, adamw_update, init_opt_state
 
 
+class TrainState(NamedTuple):
+    frozen: Prefix      # feature-extraction prefix (never updated)
+    trainable: Suffix   # suffix and head
+    opt: OptState
+
+
+def init_train_state(model: LM, rc: RunConfig, plan: TierPlan) -> TrainState:
+    """Split ``model`` (already initialised) at the plan's split; the frozen
+    part stops requiring grad."""
+    frozen, trainable = model.split_params(plan.split)
+    frozen.requires_grad_(False)
+    return TrainState(frozen, trainable,
+                      init_opt_state(dict(trainable.named_parameters()), rc.train))
+
+
+def _chunks(tree, n_chunks: int) -> Iterator:
+    """``n_chunks`` equal slices of every tensor of a batch dict, an int8
+    payload tuple or a tensor, along the leading axis."""
+    lead = (next(iter(tree.values())) if isinstance(tree, dict)
+            else tree[0] if isinstance(tree, tuple) else tree).shape[0]
+    if lead % n_chunks:
+        raise ValueError(f"a batch of {lead} does not split into {n_chunks} chunks")
+    size = lead // n_chunks
+    for i in range(0, lead, size):
+        if isinstance(tree, dict):
+            yield {k: v[i:i + size] for k, v in tree.items()}
+        elif isinstance(tree, tuple):
+            yield tuple(x[i:i + size] for x in tree)
+        else:
+            yield tree[i:i + size]
+
+
+def _accumulate(tune, trainable: Suffix, params: Dict[str, torch.Tensor],
+                chunks) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Sum of the chunks' gradients in f32, divided by their number, and the
+    mean loss."""
+    grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for k, p in params.items()}
+    loss_sum, n_chunks = 0.0, 0
+    for acts, bt in chunks:
+        loss = tune(trainable, acts, bt)
+        for acc, g in zip(grads.values(), torch.autograd.grad(loss, list(params.values()))):
+            acc.add_(g)
+        loss_sum = loss_sum + loss.detach()
+        n_chunks += 1
+    for g in grads.values():
+        g.div_(n_chunks)
+    return grads, loss_sum / n_chunks
+
+
+def build_hapi_train_step(model: LM, rc: RunConfig, plan: TierPlan) -> Callable:
+    """(state, batch) -> (state, metrics)."""
+    tune = make_tune_loss_fn(plan)
+    tc = rc.train
+
+    def train_step(state: TrainState, batch: dict):
+        b = next(iter(batch.values())).shape[0]
+        cos_b = min(plan.cos_batch, b)          # §5.5: the adapted COS batch
+        micro = min(tc.microbatch or b, b)      # grad-accumulation chunk
+        extract = make_extract_fn(TierPlan(plan.split, cos_b, plan.compress, plan.decision))
+        params = dict(state.trainable.named_parameters())
+        if cos_b <= micro:
+            # Fused path: extract chunk -> grad on chunk -> accumulate. One
+            # chunk's boundary activations live at a time.
+            chunks = ((extract(state.frozen, bt), bt)
+                      for bt in _chunks(batch, max(1, b // cos_b)))
+        else:
+            # Coarse-extraction path (batch adaptation granted a big COS
+            # batch): extract at cos_b, then accumulate over micro chunks of
+            # the stored activations.
+            n_chunks = max(1, b // micro)
+            chunks = zip(_chunks(extract(state.frozen, batch), n_chunks),
+                         _chunks(batch, n_chunks))
+        grads, loss = _accumulate(tune, state.trainable, params, chunks)
+        _, new_opt, om = adamw_update(params, grads, state.opt, tc)
+        return TrainState(state.frozen, state.trainable, new_opt), {"loss": loss, **om}
+
+    return train_step
+
+
+def build_baseline_train_step(model: LM, rc: RunConfig, split: int) -> Callable:
+    """Status quo (paper Fig. 5a): full model, training-batch granularity,
+    grads on the trainable suffix only."""
+    tc = rc.train
+
+    def train_step(state: TrainState, batch: dict):
+        params = dict(state.trainable.named_parameters())
+        loss = merge_params(state.frozen, state.trainable).loss(batch)
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        _, new_opt, om = adamw_update(params, grads, state.opt, tc)
+        return TrainState(state.frozen, state.trainable, new_opt), \
+            {"loss": loss.detach(), **om}
+
+    return train_step
+
+
+def build_tier_steps(model: LM, rc: RunConfig, plan: TierPlan):
+    """The two-program tier split (paper Fig. 8): ``extract_step`` runs on
+    the storage tier, ``tune_step`` on the compute tier; the returned
+    activations cross the link between them (optionally int8)."""
+    tc = rc.train
+    extract = make_extract_fn(plan)
+    tune = make_tune_loss_fn(plan)
+
+    def extract_step(frozen: Prefix, batch: dict) -> Acts:
+        return extract(frozen, batch)
+
+    def tune_step(trainable: Suffix, opt: OptState, acts: Acts, batch: dict):
+        b = next(iter(batch.values())).shape[0]
+        n_chunks = max(1, b // min(tc.microbatch or b, b))
+        params = dict(trainable.named_parameters())
+        grads, loss = _accumulate(tune, trainable, params,
+                                     zip(_chunks(acts, n_chunks), _chunks(batch, n_chunks)))
+        _, new_opt, om = adamw_update(params, grads, opt, tc)
+        return trainable, new_opt, {"loss": loss, **om}
+
+    return extract_step, tune_step
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
 def build_prefill_step(model: LM) -> Callable:
     @torch.no_grad()
     def prefill_step(batch: dict):
@@ -27,3 +170,14 @@ def build_decode_step(model: LM) -> Callable:
         return model.decode_step(cache, token, pos)
 
     return serve_step
+
+
+def build_forward_step(model: LM) -> Callable:
+    """Pure forward to logits (prefill-shaped, for encoder-style cells where
+    the KV cache is not meaningful)."""
+
+    @torch.no_grad()
+    def fwd(batch: dict):
+        return model(batch)
+
+    return fwd

@@ -216,17 +216,109 @@ def test_cuda_flash_tile_config_matches_the_kernel(card):
 
 @pytest.mark.cuda
 def test_cuda_flash_refuses_grad_and_counts_launches(card):
+    """The forward wrapper alone refuses an input that requires grad (it
+    records no graph); ops.flash_attention takes it through FlashAttentionFn,
+    one forward and one backward launch; under no_grad the forward runs."""
     q = torch.zeros(1, 64, 2, 64, device=card, requires_grad=True)
     with pytest.raises(RuntimeError, match="backward"):
-        tops.flash_attention(q, q, q)
-    # Under no_grad nothing is recorded, so the kernel runs.
+        tfk.flash_attention_cuda(q, q, q)
     tops.reset_launch_counts()
+    tops.flash_attention(q, q, q).sum().backward()
+    assert q.grad is not None and q.grad.shape == q.shape
+    # Under no_grad nothing is recorded, so the kernel runs.
     with torch.no_grad():
         tops.flash_attention(q, q, q)
         tops.dequantize_int8(*tops.quantize_int8(q[0]), dtype=torch.float32)
-    assert tops.launch_counts() == {"flash_attention": 1, "quantize_int8": 1,
-                                    "dequantize_int8": 1, "decode_attention": 0,
-                                    "ssd_scan": 0}
+    assert tops.launch_counts() == {"flash_attention": 2, "flash_attention_bwd": 1,
+                                    "quantize_int8": 1, "dequantize_int8": 1,
+                                    "decode_attention": 0, "ssd_scan": 0}
+
+
+# b, s, h, hkv, hd, causal, window, softcap: GQA groups of 4 (mistral), a window
+# with a soft-cap (gemma2), head dim 16 (the smoke configs), S off every tile.
+FLASH_BWD_CASES = [
+    (2, 300, 8, 2, 128, True, None, None),
+    (1, 1000, 8, 2, 128, True, 100, 50.0),
+    (2, 129, 4, 4, 64, True, None, None),
+    (1, 77, 4, 1, 64, False, None, None),
+    (1, 190, 4, 2, 64, False, 30, 30.0),
+    (1, 333, 4, 2, 256, True, 64, 50.0),
+    (1, 200, 2, 1, 256, False, None, None),
+    (1, 1, 2, 2, 64, True, None, None),
+    (1, 127, 2, 2, 128, True, 0, None),
+]
+FLASH_BWD_F32_CASES = [
+    (4, 32, 4, 2, 16, True, None, None),       # the smoke configs' attention
+    (4, 300, 4, 2, 16, True, 16, 50.0),        # gemma2 smoke, local
+    (2, 257, 8, 2, 32, True, None, None),
+    (1, 190, 4, 4, 32, False, 30, None),
+    (2, 100, 4, 1, 64, True, None, 30.0),
+    (1, 129, 2, 2, 128, False, None, None),
+    (1, 70, 4, 2, 256, True, 20, None),
+]
+
+
+def _flash_bwd_check(card, dt, b, s, h, hkv, hd, causal, window, cap):
+    tol = 2e-5 if dt == torch.float32 else 2e-2
+    q = torch.from_numpy(_normal((b, s, h, hd), 31)).to(card, dt)
+    k = torch.from_numpy(_normal((b, s, hkv, hd), 32)).to(card, dt)
+    v = torch.from_numpy(_normal((b, s, hkv, hd), 33)).to(card, dt)
+    do = torch.from_numpy(_normal((b, s, h, hd), 34)).to(card, dt)
+    rep = h // hkv
+    out, lse = tfk.flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=cap,
+                                        lse=True)
+    exp, exp_lse = tref.flash_attention_lse(q, tops.repeat_kv(k, rep), tops.repeat_kv(v, rep),
+                                            causal=causal, window=window, softcap=cap)
+    torch.testing.assert_close(lse, exp_lse, atol=tol, rtol=tol)
+    torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
+    grads = tfk.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal, window=window,
+                                         softcap=cap)
+    want = tref.flash_attention_bwd(q, k, v, do, causal=causal, window=window, softcap=cap)
+    for name, got, exp_g in zip(("dq", "dk", "dv"), grads, want):
+        assert got.dtype == dt and got.shape == exp_g.shape, name
+        torch.testing.assert_close(got.float(), exp_g.float(), atol=tol, rtol=tol, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,hd,causal,window,cap", FLASH_BWD_CASES)
+def test_cuda_flash_bwd_bf16_matches_plain(card, b, s, h, hkv, hd, causal, window, cap):
+    _flash_bwd_check(card, torch.bfloat16, b, s, h, hkv, hd, causal, window, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,hd,causal,window,cap", FLASH_BWD_F32_CASES)
+def test_cuda_flash_bwd_f32_matches_plain(card, b, s, h, hkv, hd, causal, window, cap):
+    _flash_bwd_check(card, torch.float32, b, s, h, hkv, hd, causal, window, cap)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_fn_under_autograd_and_remat(card):
+    """FlashAttentionFn's gradients on strided views of a fused QKV tensor
+    equal the backward kernel's on packed copies, also when the attention is
+    rematerialised by torch.utils.checkpoint (the forward runs twice)."""
+    h, hkv, hd, s = 8, 2, 128, 300
+    qkv = torch.from_numpy(_normal((2, s, h + 2 * hkv, hd), 35)).to(card, torch.bfloat16)
+    do = torch.from_numpy(_normal((2, s, h, hd), 36)).to(card, torch.bfloat16)
+    results = []
+    for remat in (False, True):
+        leaf = qkv.clone().requires_grad_()
+        q, k, v = leaf[:, :, :h], leaf[:, :, h:h + hkv], leaf[:, :, h + hkv:]
+        tops.reset_launch_counts()
+        if remat:
+            out = torch.utils.checkpoint.checkpoint(tops.flash_attention, q, k, v,
+                                                    use_reentrant=False)
+        else:
+            out = tops.flash_attention(q, k, v)
+        out.backward(do)
+        counts = tops.launch_counts()
+        assert counts["flash_attention"] == (2 if remat else 1)
+        assert counts["flash_attention_bwd"] == 1
+        results.append(leaf.grad)
+    assert torch.equal(results[0], results[1])
+    q, k, v = (t.contiguous() for t in (qkv[:, :, :h], qkv[:, :, h:h + hkv], qkv[:, :, h + hkv:]))
+    out, lse = tfk.flash_attention_cuda(q, k, v, lse=True)
+    want = tfk.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    assert torch.equal(results[0], torch.cat(want, dim=2))
 
 
 @pytest.mark.cuda

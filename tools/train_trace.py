@@ -1,0 +1,125 @@
+#!/usr/bin/env python3
+"""Where a Hapi train step spends its time on one NVIDIA GPU.
+
+    python3 tools/train_trace.py [--layers 8] [--batch 4] [--seq 4096]
+
+Builds mistral-nemo-12b at its published widths, cut to ``--layers`` blocks
+(bf16, seeded random weights), plans the tier split as ``chip_smoke.py``'s
+training phase does (int8 boundary, COS batch 2, microbatch 2), and times
+``build_hapi_train_step`` on one repeated batch, host clock around work that
+ends in ``torch.cuda.synchronize()``: the first step and three more (warm).
+One more warm step runs under ``torch.profiler``: the sum of its kernels'
+device times (the device's busy time; one stream, so kernels do not
+overlap), the idle share of that step's wall time, and the kernel time by
+name, largest first, grouped into f32 matmuls (the head), bf16 matmuls,
+the port's own kernels and the rest. Prints the card's name and power
+limit and one JSON line.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "tools"))
+sys.path.insert(0, str(ROOT / "src"))
+
+from prefill_trace import kernel_times  # noqa: E402
+from repro_torch.config import HapiConfig, RunConfig, ShapeConfig, TrainConfig  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.tier_split import plan_tiers  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.train.steps import build_hapi_train_step, init_train_state  # noqa: E402
+
+# Kernel names of the port's own CUDA kernels, as the profiler reports them.
+PORT_KERNELS = ("flash_fwd", "bwd_dkdv", "bwd_dq", "bwd_dsum", "quantize", "dequantize")
+
+
+def group(name: str) -> str:
+    """cuBLAS's f32 GEMMs (no TF32) run on FMA, as SIMT "sgemm" or
+    "gemm_f32f32" kernels; its bf16 GEMMs are "nvjet" or "bf16" ones."""
+    if any(k in name for k in PORT_KERNELS):
+        return "port kernels"
+    low = name.lower()
+    if "sgemm" in low or "gemm_f32" in low:
+        return "f32 matmuls"
+    if "gemm" in low or "nvjet" in low:
+        return "bf16 matmuls"
+    return "elementwise, reductions, copies"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--layers", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=4096)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("train_trace: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    cfg = dataclasses.replace(get_config("mistral-nemo-12b"), n_layers=args.layers)
+    shape = ShapeConfig("train", "train", args.seq, args.batch)
+    hapi = HapiConfig(compress_transfer=True, cos_batch=2, cos_batch_min=1)
+    rc = RunConfig(model=cfg, shape=shape, hapi=hapi,
+                   train=TrainConfig(microbatch=2, learning_rate=1e-4, warmup_steps=1,
+                                     total_steps=10))
+    plan = plan_tiers(cfg, shape, hapi)
+    model = build_model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    state = init_train_state(model, rc, plan)
+    step = build_hapi_train_step(model, rc, plan)
+    toks = torch.from_numpy(
+        np.random.default_rng(200).integers(0, cfg.vocab_size, (args.batch, args.seq))).cuda()
+    batch = {"tokens": toks, "labels": toks}
+
+    def timed():
+        nonlocal state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    ops.reset_launch_counts()
+    cold = timed()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    warm = [timed() for _ in range(3)]
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced = timed()
+    kernels = kernel_times(prof)
+    busy = sum(kernels.values())
+    groups: dict = {}
+    for name, ms in kernels.items():
+        groups[group(name)] = groups.get(group(name), 0.0) + ms
+    top = dict(list(kernels.items())[:15])
+    row = {"layers": args.layers, "split": plan.split, "batch": args.batch, "seq": args.seq,
+           "cold_ms": cold, "warm_ms": warm, "traced_ms": traced, "device_busy_ms": busy,
+           "idle_share": 1 - busy / traced if busy else None, "groups_ms": groups,
+           "launches_per_step": launches, "top_kernels_ms": top}
+    print(f"train step, mistral-nemo-12b at {args.layers} blocks (split {plan.split}), "
+          f"{args.batch} x {args.seq}: cold {cold:.1f} ms, warm "
+          f"{', '.join(f'{x:.1f}' for x in warm)} ms, traced {traced:.1f} ms; device busy "
+          f"{busy:.1f} ms (idle share {row['idle_share']}); launches {launches}")
+    for name, ms in groups.items():
+        print(f"  {ms:9.3f} ms  [{name}]")
+    for name, ms in top.items():
+        print(f"  {ms:9.3f} ms  {name[:110]}")
+    print(smi)
+    print(json.dumps({"card": smi, "train_trace": row}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
