@@ -25,14 +25,17 @@ yardstick), then drives the port's three paths at full width:
   decode 32 tokens greedily, with exact launch counts and the prefill's
   logits held to the last teacher-forced step's.
 * Training (``repro_torch.train.steps.build_hapi_train_step``): one step of a
-  full-width two-block mistral-nemo-12b gives the same loss, gradients and
-  updates on the card and on the CPU; ``launch.train.run_training`` passes
-  ``tests/test_e2e_smoke.py``'s three scenarios on the card (the smoke
-  configs: the loss falls, a crash resumes, the int8 boundary trains) and
-  refuses mamba2, whose SSD kernel has no backward yet; then mistral-nemo-12b
-  at full width cut to 8 blocks (split 6: 2 trainable blocks and the head)
-  takes 4 fused-path steps on one repeated 4 x 4,096 batch, the loss falling,
-  and one coarse-path step, with 86,507,520 wire bytes a step, exact launch
+  full-width two-block mistral-nemo-12b, and of a full-width two-layer
+  mamba2-1.3b, gives the same loss, gradients and updates on the card and on
+  the CPU; ``launch.train.run_training`` passes ``tests/test_e2e_smoke.py``'s
+  three scenarios on the card (the smoke configs: the loss falls, a crash
+  resumes, the int8 boundary trains) and trains mamba2 there, its SSD scan
+  differentiated by the backward kernel; then mistral-nemo-12b at full width
+  cut to 8 blocks (split 6: 2 trainable blocks and the head), and
+  mamba2-1.3b at full width and depth (48 layers, split 36: 12 trainable
+  layers and the head), each take 4 fused-path steps on one repeated
+  4 x 4,096 batch, the loss falling, and one coarse-path step, with the
+  planner's wire bytes a step (86,507,520 and 34,603,008), exact launch
   counts and the frozen prefix unchanged bit for bit; each step's time is
   split into extract, tune (forward and backward) and AdamW.
 
@@ -66,14 +69,14 @@ from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.tier_split import (  # noqa: E402
     make_extract_fn, make_tune_loss_fn, plan_tiers, wire_bytes)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.kernels import int8_transfer  # noqa: E402
+from repro_torch.kernels import int8_transfer, ssd_scan  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd_cuda, flash_attention_cuda)
 from repro_torch.kernels.int8_cases import INT8_ADVERSARIAL, int8_adversarial  # noqa: E402
 from repro_torch.kernels.int8_transfer import (  # noqa: E402
     dequantize_int8_cuda, quantize_int8_cuda)
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.train import run_training  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
@@ -120,6 +123,8 @@ KERNELS = {
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:101"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:106"),
+    # No TPU kernel: the JAX train step differentiates ssd_chunked through XLA.
+    "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan_bwd.cu", "src/repro/models/ssm.py:89"),
 }
 # The training slice: mistral-nemo-12b at full width, cut to 8 blocks (freeze
 # index 6: 2 trainable blocks, final_norm and unembed), a batch of 4 x 4,096.
@@ -138,6 +143,30 @@ TRAIN_LAUNCHES = {
     "coarse": {"flash_attention": 12 + 4 * 4, "flash_attention_bwd": 4 * 2,
                "quantize_int8": 2, "dequantize_int8": 4},
 }
+# The SSM training slice: mamba2-1.3b at full width and depth (48 layers,
+# freeze index 36: 12 trainable layers, final_norm and the tied head), the
+# same batch, plan and steps. By the same arithmetic: fused 2 x (36 + 12 + 12)
+# SSD forwards and 2 x 12 backwards; coarse 2 x 36 + 4 x (12 + 12) and 4 x 12.
+SSM_ARCH = "mamba2-1.3b"
+SSM_WIRE_BYTES = 33_554_432 + 1_048_576   # int8 codes + f32 scales of (4, 4096, 2048)
+SSM_TRAIN_LAUNCHES = {
+    "fused": {"ssd_scan": 120, "ssd_scan_bwd": 24, "quantize_int8": 2, "dequantize_int8": 2},
+    "coarse": {"ssd_scan": 168, "ssd_scan_bwd": 48, "quantize_int8": 2, "dequantize_int8": 4},
+}
+
+
+def train_launches(kind: str, n_blocks: int, split: int, fwd: str, bwd: str) -> dict:
+    """Launches of one train step of a batch of 4 at COS batch 2: fused
+    (microbatch 2), 2 chunks, each the prefix's forwards, each trainable
+    block's forward twice (remat) and its backward, 1 quantize and 1
+    dequantize; coarse (microbatch 1), extraction over 2 microbatches, then
+    4 chunks of one sample, each 1 dequantize."""
+    tail = n_blocks - split
+    if kind == "fused":
+        return {fwd: 2 * (split + 2 * tail), bwd: 2 * tail, "quantize_int8": 2,
+                "dequantize_int8": 2}
+    return {fwd: 2 * split + 4 * 2 * tail, bwd: 4 * tail, "quantize_int8": 2,
+            "dequantize_int8": 4}
 # Card vs CPU of one train step of the 2-block full-width model, bf16 on both.
 # The loss as LOSS_TOL; the gradient norm and the first moment m (0.1 x the
 # clipped gradient) to SERVE_AGREE_TOL relative: bf16 gradients summed in f32
@@ -145,6 +174,24 @@ TRAIN_LAUNCHES = {
 # lr * sign(g), so the updates are held by the share of elements whose signs
 # agree: a gradient element within bf16 noise of zero may flip.
 TRAIN_SIGN_AGREE = 0.95
+# mamba2's D (the skip y + D x) is held apart from SERVE_AGREE_TOL. Its
+# gradient, the sum of dL/dy * x, nearly cancels: the per-head RMSNorm after
+# the skip makes dL/dy nearly orthogonal to y, which D x dominates at init,
+# so its norm is about 1.6e-5 against 2.5e-5 to 0.07 for the other tensors,
+# and bf16 rounding elsewhere in the step moves it by about 13% card vs CPU
+# (0.128 on an H100, the same with the plain SSD backward on the card). It
+# does not pass through the SSD backward: the step with the kernel and the
+# step with the plain backward, both on the card, give it the same bits,
+# which is checked. CANCELLING_TOL still catches a wrong gradient (error
+# near 1 or above).
+CANCELLING = ("mamba.D",)
+CANCELLING_TOL = 0.25
+# The same card step with the SSD backward kernel and with its plain version
+# (ref.ssd_chunked_bwd on the card tensors): the two differ by about 1e-5 in
+# f32 (check_ssd_bwd), which the bf16 rounding of the gradients upstream of
+# the scan amplifies to at most about 5e-4 relative L2 per tensor of the
+# first moment. Everything else in the two steps is the same computation.
+KERNEL_STEP_TOL = 5e-3
 # Launches of one serve() call at SERVE_BATCH x SERVE_PROMPT + SERVE_TOKENS:
 # a decode-attention launch per attention sublayer per decode step, a flash
 # launch per attention sublayer of the prefill, an SSD launch per mamba layer.
@@ -625,6 +672,90 @@ def check_ssd() -> dict:
     return {"ssd_scan": row}
 
 
+# The SSD backward against ref.ssd_chunked_bwd, relative L2 per gradient: f32
+# to 1e-5 (f32 on both sides, another summation order); bf16 to 1e-2 (the
+# kernel computes in f32 from the bf16 inputs as the plain version does;
+# dx, dB and dC are rounded to bf16 on both sides).
+SSD_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+SSD_BWD_CASES = [
+    # b, s, h, p, n, chunk, dtype, a_log (None: rates -exp(0.3 z)), final-state gradient
+    (2, 4096, 64, 64, 128, 256, torch.bfloat16, None, False),   # the training path's shape
+    (2, 768, 4, 64, 128, 256, torch.bfloat16, -4.0, False),     # slow decay, 3 chunks
+    (4, 100, 64, 64, 128, 256, torch.bfloat16, None, False),    # a chunk off 16
+    (2, 512, 8, 64, 128, 256, torch.bfloat16, -1.0, True),      # the final state's gradient
+    (4, 32, 8, 16, 16, 16, torch.float32, None, False),         # the smoke model's shape
+    (2, 192, 3, 64, 128, 64, torch.float32, -1.0, True),
+]
+
+
+def ssd_bwd_bound(b, s, h, p, n, q, itemsize):
+    """Bytes: x, B, C in their type, dtA and dt in f32, the states and dy in
+    f32 read once; dx, dB, dC in the inputs' type and d dtA, d dt in f32
+    written once. Operations: per chunk and batch row C.B^T once over the
+    lower triangle; per head the four triangle products (dy.xs^T, (S L)^T.dy,
+    (M L).B, (M L)^T.C) and the five with the state (C.h, h.dy, B.dh, dh.xs,
+    C^T.dy), at the bf16 tensor-core peak as the forward's bound counts
+    them; the f32 FMA bound comes back beside it."""
+    chunks = s // q
+    nbytes = (2 * b * s * h * p + 4 * b * s * n) * itemsize + 4 * b * s * h * 4 \
+        + (b * chunks * h * n * p + b * s * h * p) * 4
+    tri = q * (q + 1) // 2
+    flops = b * chunks * (2 * tri * n + h * (2 * tri * (2 * p + 2 * n) + 10 * q * n * p))
+    return bound(nbytes, flops, HW.peak_flops_bf16), flops, \
+        bound(nbytes, flops, HW.peak_flops_f32)[0]
+
+
+def check_ssd_bwd() -> dict:
+    """The forward's states and the backward kernel's five gradients against
+    the plain versions; two calls are bit-equal; then its time at the
+    training path's shape beside its bound."""
+    row = None
+    for b, s, h, p, n, chunk, dt, a_log, with_ds in SSD_BWD_CASES:
+        args = ssd_inputs(b, s, h, p, n, dt, seed=40, a_log=a_log)
+        dy = randn((b, s, h, p), torch.float32, 45)
+        ds = randn((b, h, n, p), torch.float32, 46) if with_ds else None
+        y, st, states = ssd_scan_cuda(*args, chunk=chunk, states=True)
+        y0, st0 = ssd_scan_cuda(*args, chunk=chunk)
+        check(torch.equal(y, y0) and torch.equal(st, st0), "ssd_scan: states=True changed y")
+        want_states = ref.ssd_chunked(*args, chunk=chunk, states=True)[2]
+        torch.testing.assert_close(states, want_states, atol=SSD_TOL, rtol=SSD_TOL)
+        del y, st, y0, st0, want_states
+        grads = ssd_scan_bwd_cuda(*args, states, dy, ds, chunk=chunk)
+        want = ref.ssd_chunked_bwd(*args, dy, ds, chunk=chunk, states=states)
+        errs = {}
+        for name, got, exp, like in zip(("dx", "ddtA", "ddt", "dB", "dC"), grads, want, args):
+            check(got.dtype == like.dtype and got.shape == like.shape, f"ssd_scan_bwd {name}")
+            check(bool(torch.isfinite(got).all()), f"ssd_scan_bwd {name} not finite")
+            errs[name] = rel_err(got, exp)
+            check(errs[name] <= SSD_BWD_TOL[dt], f"ssd_scan_bwd {name}: relative L2 "
+                  f"{errs[name]:.3g} > {SSD_BWD_TOL[dt]:g}")
+        again = ssd_scan_bwd_cuda(*args, states, dy, ds, chunk=chunk)
+        check(all(torch.equal(a, b_) for a, b_ in zip(grads, again)),
+              "ssd_scan_bwd: two calls differ")
+        log(f"ssd_bwd B={b} S={s} H={h} P={p} N={n} chunk={chunk} {str(dt)[6:]}"
+            f"{' slow decay' if a_log == -4.0 else ''}{' dstate' if with_ds else ''}: relative "
+            f"L2 {', '.join(f'{k} {v:.3g}' for k, v in errs.items())} (tol "
+            f"{SSD_BWD_TOL[dt]:g}); two calls bit-equal")
+        if row is None:
+            (sb, sby), flops, fma_ms = ssd_bwd_bound(b, s, h, p, n, chunk, 2)
+            row = dict(max_abs_err=max(float((g.float() - w.float()).abs().max())
+                                       for g, w in zip(grads, want)),
+                       ms=device_ms(lambda: ssd_scan_bwd_cuda(*args, states, dy, chunk=chunk), 3),
+                       plain_ms=time_ms(lambda: ref.ssd_chunked_bwd(
+                           *args, dy, chunk=chunk, states=states), 2, 1),
+                       bound_ms=sb, bound_by=sby, library_ms=None)
+            fwd_ms = device_ms(lambda: ssd_scan_cuda(*args, chunk=chunk), 10)
+            fwd_states_ms = device_ms(lambda: ssd_scan_cuda(*args, chunk=chunk, states=True), 10)
+            log(f"ssd_scan_bwd (x {b} x {s} x {h} x {p} bf16, N {n}, chunk {chunk}): "
+                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound {sb:.4f} ms ({sby}; "
+                f"{flops / 1e9:.3f} GFLOP at the bf16 peak), f32 FMA bound {fma_ms:.4f} ms; "
+                f"the forward at this shape {fwd_ms:.4f} ms, with its states "
+                f"{fwd_states_ms:.4f} ms")
+        del args, dy, ds, states, grads, want, again
+        free()
+    return {"ssd_scan_bwd": row}
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: full-width agreement, card (kernels) vs CPU (plain versions)
 # ---------------------------------------------------------------------------
@@ -885,12 +1016,29 @@ def _train_state(lm, rc: RunConfig, plan):
     return state, build_hapi_train_step(lm, rc, plan)
 
 
-def check_full_width_training() -> None:
-    """One Hapi train step of a 2-block full-width mistral-nemo-12b in bf16
-    on the card (kernels) and on the CPU (plain versions), from the same
-    weights: loss, gradient norm, first moment and the updates agree."""
-    cfg = dataclasses.replace(get_config(ARCH), n_layers=2)
-    shape = ShapeConfig("agree", "train", seq_len=128, global_batch=2)
+class plain_ssd_backward:
+    """Within the block, SSDScanFn's backward on the card runs the plain
+    version, ref.ssd_chunked_bwd, on the card tensors instead of the kernel."""
+
+    def __enter__(self):
+        self.kernel = ssd_scan.ssd_scan_bwd_cuda
+        ssd_scan.ssd_scan_bwd_cuda = (
+            lambda x, dtA, dt, B_, C_, states, dy, dstate=None, *, chunk=256:
+            ref.ssd_chunked_bwd(x, dtA, dt, B_, C_, dy, dstate, chunk=chunk, states=states))
+        return self
+
+    def __exit__(self, *exc):
+        ssd_scan.ssd_scan_bwd_cuda = self.kernel
+
+
+def check_full_width_training(arch: str = ARCH, seq: int = 128) -> None:
+    """One Hapi train step of a 2-block full-width model in bf16 on the card
+    (kernels) and on the CPU (plain versions), from the same weights: loss,
+    gradient norm, first moment and the updates agree. For the SSM, the card
+    step also runs with the plain SSD backward on the card, which isolates
+    the backward kernel: the first moments agree to KERNEL_STEP_TOL."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    shape = ShapeConfig("agree", "train", seq_len=seq, global_batch=2)
     hapi = HapiConfig(compress_transfer=True, cos_batch=1, cos_batch_min=1)
     rc = RunConfig(model=cfg, shape=shape, hapi=hapi,
                    train=TrainConfig(microbatch=2, learning_rate=TRAIN_LR, warmup_steps=1,
@@ -899,37 +1047,70 @@ def check_full_width_training() -> None:
     check((plan.split, plan.cos_batch) == (1, 1), f"2-block train plan {plan}")
     lm_gpu = build_model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(3))
     lm_cpu = copy.deepcopy(lm_gpu).cpu()
-    toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 128))
+    runs = [("cuda", lm_gpu), ("cpu", lm_cpu)]
+    if cfg.family == "ssm":
+        runs.append(("cuda, plain SSD backward", copy.deepcopy(lm_gpu)))
+    toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, seq))
     out = {}
-    for dev, lm in (("cuda", lm_gpu), ("cpu", lm_cpu)):
-        t = torch.from_numpy(toks).to(dev)
+    for dev, lm in runs:
+        t = torch.from_numpy(toks).to(dev.split(",")[0])
         state, step = _train_state(lm, rc, plan)
         before = {k: p.detach().float().cpu() for k, p in state.trainable.named_parameters()}
+        ops.reset_launch_counts()
         t0 = time.perf_counter()
-        state, metrics = step(state, {"tokens": t, "labels": t})
+        if dev == "cuda":
+            state, metrics = step(state, {"tokens": t, "labels": t})
+        else:
+            with plain_ssd_backward():
+                state, metrics = step(state, {"tokens": t, "labels": t})
         loss = float(metrics["loss"])
+        if dev == "cuda":
+            # 2 chunks of one sample (COS batch 1), each one trainable block's backward.
+            bwd = "ssd_scan_bwd" if cfg.family == "ssm" else "flash_attention_bwd"
+            counts = ops.launch_counts()
+            check(counts[bwd] == 2, f"{arch} train step on the card: launches {counts}")
         out[dev] = dict(loss=loss, gnorm=float(metrics["grad_norm"]),
                         m={k: x.float().cpu() for k, x in state.opt.m.items()},
                         delta={k: p.detach().float().cpu() - before[k]
                                for k, p in state.trainable.named_parameters()})
-        log(f"full width train step, 2 blocks, batch 2 x 128 on {dev}: loss {loss:.6f}, "
-            f"grad norm {out[dev]['gnorm']:.6g} ({time.perf_counter() - t0:.1f} s)")
+        log(f"full width train step, {arch} 2 blocks, batch 2 x {seq} on {dev}: loss {loss:.6f}, "
+            f"grad norm {out[dev]['gnorm']:.6g} ({time.perf_counter() - t0:.1f} s)"
+            f"{f', launches {counts}' if dev == 'cuda' else ''}")
         del state, step
     c, h = out["cuda"], out["cpu"]
     loss_diff = abs(c["loss"] - h["loss"])
     gn_err = abs(c["gnorm"] - h["gnorm"]) / h["gnorm"]
-    m_err = max(rel_err(c["m"][k], h["m"][k]) for k in h["m"])
+    errs = {k: rel_err(c["m"][k], h["m"][k]) for k in h["m"]}
+    cancelling = {k: e for k, e in errs.items() if k.endswith(CANCELLING)}
+    worst = max((k for k in errs if k not in cancelling), key=errs.get)
     signs = torch.cat([(torch.sign(c["delta"][k]) == torch.sign(h["delta"][k])).flatten()
                        for k in h["delta"]]).float().mean().item()
-    log(f"full width train step agreement, card vs cpu: |loss| {loss_diff:.3g} (tol "
+    log(f"full width train step agreement, {arch}, card vs cpu: |loss| {loss_diff:.3g} (tol "
         f"{LOSS_TOL:g}), grad norm relative {gn_err:.3g} (tol {SERVE_AGREE_TOL:g}), first "
-        f"moment relative L2 (worst tensor) {m_err:.3g} (tol {SERVE_AGREE_TOL:g}), update "
-        f"signs agree in {signs:.5f} of elements (at least {TRAIN_SIGN_AGREE:g})")
+        f"moment relative L2 (worst tensor, {worst}) {errs[worst]:.3g} (tol "
+        f"{SERVE_AGREE_TOL:g}){f', cancelling {cancelling} (tol {CANCELLING_TOL:g})' if cancelling else ''}"
+        f", update signs agree in {signs:.5f} of elements (at least {TRAIN_SIGN_AGREE:g})")
     check(math.isfinite(c["loss"]) and loss_diff <= LOSS_TOL, "train step: losses disagree")
     check(gn_err <= SERVE_AGREE_TOL, "train step: grad norms disagree")
-    check(m_err <= SERVE_AGREE_TOL, "train step: gradients disagree")
+    check(errs[worst] <= SERVE_AGREE_TOL, "train step: gradients disagree")
+    check(all(e <= CANCELLING_TOL for e in cancelling.values()),
+          f"train step: cancelling gradients disagree {cancelling}")
     check(signs >= TRAIN_SIGN_AGREE, "train step: updates disagree")
-    del lm_gpu, lm_cpu, out
+    if cfg.family == "ssm":
+        pl = out["cuda, plain SSD backward"]
+        kerrs = {k: rel_err(c["m"][k], pl["m"][k]) for k in pl["m"]}
+        kworst = max(kerrs, key=kerrs.get)
+        log(f"full width train step, {arch} on the card, SSD backward kernel vs its plain "
+            f"version: loss {c['loss']:.6f} / {pl['loss']:.6f}, first moment relative L2 "
+            f"(worst tensor, {kworst}) {kerrs[kworst]:.3g} (tol {KERNEL_STEP_TOL:g}); "
+            f"{', '.join(cancelling)} bit-equal: "
+            f"{all(torch.equal(c['m'][k], pl['m'][k]) for k in cancelling)}")
+        check(c["loss"] == pl["loss"], "train step: the forward differs between the runs")
+        check(kerrs[kworst] <= KERNEL_STEP_TOL, "train step: the SSD backward kernel disagrees "
+              "with its plain version")
+        check(all(torch.equal(c["m"][k], pl["m"][k]) for k in cancelling),
+              "train step: a cancelling gradient depends on the SSD backward")
+    del lm_gpu, lm_cpu, out, runs
     free()
 
 
@@ -970,11 +1151,14 @@ class StepClock:
         train_steps.adamw_update = self.adamw
 
 
-def train_slice() -> dict:
+def train_slice(arch: str = ARCH, layers: int = TRAIN_LAYERS, split: int = 6,
+                wire_bytes_want: int = WIRE_BYTES, launches_want=None) -> dict:
     """The training main path at full width: mistral-nemo-12b cut to 8
-    blocks, bf16, a batch of 4 x 4,096; 4 fused-path steps on one repeated
-    batch, then 1 coarse-path step. Returns the launches of each kernel."""
-    cfg = dataclasses.replace(get_config(ARCH), n_layers=TRAIN_LAYERS)
+    blocks (or ``arch`` at ``layers``, split ``split``), bf16, a batch of
+    4 x 4,096; 4 fused-path steps on one repeated batch, then 1 coarse-path
+    step. Returns the launches of each kernel."""
+    launches_want = launches_want or TRAIN_LAUNCHES
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     shape = ShapeConfig("train", "train", seq_len=4096, global_batch=4)
     hapi = HapiConfig(compress_transfer=True, cos_batch=2, cos_batch_min=1)
     tc = TrainConfig(microbatch=2, learning_rate=TRAIN_LR, warmup_steps=1, total_steps=5)
@@ -982,7 +1166,13 @@ def train_slice() -> dict:
     plan = plan_tiers(cfg, shape, hapi)
     log(f"train plan: split {plan.split} of {cfg.n_blocks} blocks, cos_batch {plan.cos_batch}, "
         f"compress {plan.compress}; {plan.decision.reason}")
-    check((plan.split, plan.cos_batch, plan.compress) == (6, 2, True), "unexpected train plan")
+    check((plan.split, plan.cos_batch, plan.compress) == (split, 2, True),
+          "unexpected train plan")
+    family = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+    for kind in ("fused", "coarse"):
+        derived = train_launches(kind, cfg.n_blocks, plan.split, family, f"{family}_bwd")
+        check(derived == launches_want[kind], f"{kind} launches {derived}, expected "
+              f"{launches_want[kind]}")
     free()
     lm = build_model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
     state, step = _train_state(lm, rc, plan)
@@ -991,9 +1181,9 @@ def train_slice() -> dict:
     toks = torch.from_numpy(
         np.random.default_rng(200).integers(0, cfg.vocab_size, (4, 4096))).cuda()
     batch = {"tokens": toks, "labels": toks}
-    log(f"{ARCH} at {TRAIN_LAYERS} blocks: {n_train} trainable parameters (2 blocks, "
-        f"final_norm, unembed), {sum(v.numel() for v in frozen0.values())} frozen")
-    losses = []
+    log(f"{arch} at {layers} blocks: {n_train} trainable parameters ({layers - plan.split} "
+        f"blocks, final_norm, head), {sum(v.numel() for v in frozen0.values())} frozen")
+    losses, peaks = [], []
     total = dict.fromkeys(KERNELS, 0)
     ops.reset_launch_counts()
     with StepClock() as clock:
@@ -1010,23 +1200,24 @@ def train_slice() -> dict:
             loss = float(metrics["loss"])
             step_s = time.perf_counter() - t0
             rose = {k: v - before[k] for k, v in ops.launch_counts().items()}
-            want = {k: TRAIN_LAUNCHES[kind].get(k, 0) for k in rose}
+            want = {k: launches_want[kind].get(k, 0) for k in rose}
             log(f"train step {i + 1} ({kind}): {1e3 * step_s:.1f} ms (extract "
                 f"{1e3 * clock.extract_s:.1f}, tune forward+backward "
                 f"{1e3 * (step_s - clock.extract_s - clock.adamw_s):.1f}, AdamW "
-                f"{1e3 * clock.adamw_s:.1f}), loss {loss:.6f}, grad norm "
+                f"{1e3 * clock.adamw_s:.1f}), {arch}, loss {loss:.6f}, grad norm "
                 f"{float(metrics['grad_norm']):.4g}, lr {float(metrics['lr']):.3g}, wire "
                 f"{clock.wire} bytes, peak device memory {torch.cuda.max_memory_allocated()} "
                 f"bytes, launches {rose}")
+            peaks.append(torch.cuda.max_memory_allocated())
             check(math.isfinite(loss), f"train step {i + 1}: loss {loss}")
-            check(clock.wire == WIRE_BYTES, f"train step {i + 1}: wire {clock.wire}")
+            check(clock.wire == wire_bytes_want, f"train step {i + 1}: wire {clock.wire}")
             check(rose == want, f"train step {i + 1}: launches {rose}, expected {want}")
             losses.append(loss)
     check(losses[TRAIN_FUSED_STEPS - 1] < losses[0], f"loss did not fall: {losses}")
     check(int(state.opt.step) == TRAIN_FUSED_STEPS + 1, "optimizer step count")
     same = all(torch.equal(v.cpu(), frozen0[k]) for k, v in state.frozen.state_dict().items())
-    log(f"train: losses {[round(x, 6) for x in losses]}; frozen prefix unchanged bit for bit: "
-        f"{same}")
+    log(f"train {arch}: losses {[round(x, 6) for x in losses]}; peak device memory over "
+        f"the steps {max(peaks)} bytes; frozen prefix unchanged bit for bit: {same}")
     check(same, "the frozen prefix changed")
     for k, v in ops.launch_counts().items():
         total[k] += v
@@ -1037,8 +1228,8 @@ def train_slice() -> dict:
 
 def train_defaults() -> None:
     """tests/test_e2e_smoke.py's three scenarios through run_training on the
-    card (the smoke configs: f32, head dim 16); and mamba2's suffix, whose
-    SSD kernel has no backward yet, refuses to train with a clear error."""
+    card (the smoke configs: f32, head dim 16); and mamba2, whose suffix
+    trains through the SSD backward kernel: the loss falls."""
     out = run_training("qwen3-32b", steps=12, batch=8, seq=32, lr=1e-3, log_every=100)
     first, last = np.mean(out["losses"][:3]), np.mean(out["losses"][-3:])
     log(f"run_training qwen3-32b on the card: losses {[round(x, 4) for x in out['losses']]}")
@@ -1059,13 +1250,15 @@ def train_defaults() -> None:
         f"{[round(x, 4) for x in out['losses']]}")
     check(np.isfinite(out["final_loss"]) and out["losses"][-1] < out["losses"][0] + 0.05,
           "mistral-nemo-12b: the compressed boundary did not train")
-    try:
-        run_training("mamba2-1.3b", steps=1, batch=2, seq=32, log_every=100)
-    except RuntimeError as e:
-        check("SSD kernel has no backward" in str(e), f"mamba2: unexpected error {e}")
-        log(f"run_training mamba2-1.3b on the card refuses, as it should: {e}")
-    else:
-        check(False, "mamba2-1.3b trained on the card without an SSD backward")
+    ops.reset_launch_counts()
+    out = run_training("mamba2-1.3b", steps=12, batch=8, seq=32, lr=1e-3, log_every=100)
+    counts = ops.launch_counts()
+    first, last = np.mean(out["losses"][:3]), np.mean(out["losses"][-3:])
+    log(f"run_training mamba2-1.3b on the card: losses {[round(x, 4) for x in out['losses']]}, "
+        f"launches {counts}")
+    check(np.isfinite(out["final_loss"]) and last < first, "mamba2-1.3b: loss did not fall")
+    check(counts["ssd_scan_bwd"] > 0 and counts["ssd_scan"] > counts["ssd_scan_bwd"],
+          f"mamba2-1.3b: launches {counts}")
     free()
 
 
@@ -1087,10 +1280,11 @@ def main() -> int:
 
     kernels = {}
     for name, fn in (("flash", check_flash), ("flash_bwd", check_flash_bwd), ("int8", check_int8),
-                     ("decode", check_decode), ("ssd", check_ssd)):
+                     ("decode", check_decode), ("ssd", check_ssd), ("ssd_bwd", check_ssd_bwd)):
         kernels.update(phase(name, fn))
     phase("full_width", check_full_width)
     phase("full_width_training", check_full_width_training)
+    phase("full_width_training_ssm", lambda: check_full_width_training(SSM_ARCH, 512))
     phase("full_width_serving", check_full_width_serving)
     phase("serve_defaults", serve_defaults)
     phase("train_defaults", train_defaults)
@@ -1098,8 +1292,12 @@ def main() -> int:
     free()
     served = phase("serving", serve_models)
     trained = phase("training", train_slice)
-    launches = {name: pushdown[name] + served[name] + trained[name] for name in KERNELS}
-    log(f"launches: pushdown {pushdown}, serving {served}, training {trained}")
+    trained_ssm = phase("training_ssm", lambda: train_slice(
+        SSM_ARCH, get_config(SSM_ARCH).n_layers, 36, SSM_WIRE_BYTES, SSM_TRAIN_LAUNCHES))
+    launches = {name: pushdown[name] + served[name] + trained[name] + trained_ssm[name]
+                for name in KERNELS}
+    log(f"launches: pushdown {pushdown}, serving {served}, training {trained}, "
+        f"SSM training {trained_ssm}")
     log(f"phase wall seconds {phases}; total {time.perf_counter() - t_start:.1f} s")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main paths")

@@ -11,6 +11,9 @@
 //   state = state exp(cum_end) + sum_j B_j (exp(cum_end - cum_j) x_j dt_j).
 // y (B, S, H, P) and the final state (B, H, N, P) are written in f32, as
 // ssm.ssd_chunked returns them (the Pallas kernel writes y in x's type).
+// Where the caller passes `states`, both kernels also write the state
+// entering each chunk, (B, S / Q, H, N, P) f32 (zeros for the first chunk),
+// for the backward (csrc/ssd_scan_bwd.cu); a null pointer writes nothing.
 // exp(cum_i - cum_j) is taken only where i >= j: above the diagonal the
 // difference is positive and would overflow.
 //
@@ -50,7 +53,8 @@
 // f32 (ssd_scan_kernel, tests only): the first version, f32 FMA on the CUDA
 // cores, described where it starts below.
 //
-// C interface: ssd_scan_fwd returns cudaGetLastError() after its launch;
+// C interface: ssd_scan_fwd returns cudaGetLastError() after its launch
+// (`states` may be null);
 // ssd_scan_launch gives the bf16 kernel's grid, threads and shared memory.
 // dtype codes (x, B, C): 0 = float32, 1 = bfloat16.
 
@@ -77,6 +81,7 @@ struct Params {
   const void* Cm;     // (B, S, N)
   float* y;           // (B, S, H, P)
   float* state;       // (B, H, N, P)
+  float* states;      // (B, S / Q, H, N, P) entering each chunk, or null
   int S, H, N, P, Q;
 };
 
@@ -143,6 +148,10 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(const Params p) {
 
   for (int s0 = 0; s0 < p.S; s0 += Q) {
     __syncthreads();  // the previous chunk's readers of cum and St are done
+    if (p.states) {   // the state entering the chunk
+      float* so = p.states + ((static_cast<long long>(b) * (p.S / Q) + s0 / Q) * p.H + h) * N * P;
+      for (int i = tid; i < N * P; i += kThreads) so[i] = St[i];
+    }
     if (tid < 32) {   // cum = inclusive prefix sum of dtA over the chunk
       float run = 0.f;
       for (int base = 0; base < Q; base += 32) {
@@ -522,8 +531,26 @@ __global__ void __launch_bounds__(kMmaThreads, 2) ssd_scan_mma(const Params p) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) st[u][i][c] = 0.f;
 
+  // The warp's state fragments into a (N, P) f32 matrix at dst.
+  auto store_state = [&](float* dst) {
+#pragma unroll
+    for (int u = 0; u < MTW; ++u) {
+      const int mt = wm + L::WM * u;
+      if (mt >= nk16) break;
+#pragma unroll
+      for (int i = 0; i < NTW; ++i) {
+        float* d = dst + static_cast<long long>(16 * mt + g) * P + 8 * i + 2 * q4;
+        *reinterpret_cast<float2*>(d) = make_float2(st[u][i][0], st[u][i][1]);
+        *reinterpret_cast<float2*>(d + 8 * P) = make_float2(st[u][i][2], st[u][i][3]);
+      }
+    }
+  };
+
   int buf = 0;
   for (int s0 = 0; s0 < p.S; s0 += Q) {
+    if (p.states)  // the state entering the chunk, beside its bf16 copy in shared memory
+      store_state(p.states + ((static_cast<long long>(b) * (p.S / Q) + s0 / Q) * H + h) * N * P +
+                  p0 + wc);
     // The chunk's dtA and dt, then its first tiles, in two groups: the scan
     // runs while the tiles land. Every reader of the previous chunk's cum,
     // dts, fend and tiles is past a barrier.
@@ -760,18 +787,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2) ssd_scan_mma(const Params p) {
     }
   }
 
-  float* so = p.state + (static_cast<long long>(b) * H + h) * N * P + p0 + wc;
-#pragma unroll
-  for (int u = 0; u < MTW; ++u) {
-    const int mt = wm + L::WM * u;
-    if (mt >= nk16) break;
-#pragma unroll
-    for (int i = 0; i < NTW; ++i) {
-      float* dst = so + static_cast<long long>(16 * mt + g) * P + 8 * i + 2 * q4;
-      *reinterpret_cast<float2*>(dst) = make_float2(st[u][i][0], st[u][i][1]);
-      *reinterpret_cast<float2*>(dst + 8 * P) = make_float2(st[u][i][2], st[u][i][3]);
-    }
-  }
+  store_state(p.state + (static_cast<long long>(b) * H + h) * N * P + p0 + wc);
 }
 
 template <int PB>
@@ -810,10 +826,10 @@ extern "C" int ssd_scan_launch(int B, int H, int N, int P, int Q, int* grid, int
 }
 
 extern "C" int ssd_scan_fwd(const void* x, const float* dtA, const float* dt, const void* Bm,
-                            const void* Cm, float* y, float* state, int dtype, int B, int S,
-                            int H, int N, int P, int Q, void* stream) {
+                            const void* Cm, float* y, float* state, float* states, int dtype,
+                            int B, int S, int H, int N, int P, int Q, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || Q <= 0 || S % Q) return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{x, dtA, dt, Bm, Cm, y, state, S, H, N, P, Q};
+  const Params p{x, dtA, dt, Bm, Cm, y, state, states, S, H, N, P, Q};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (!mma_takes(N, P, Q)) return static_cast<int>(cudaErrorInvalidValue);

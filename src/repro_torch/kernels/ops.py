@@ -4,9 +4,9 @@ Counterpart of ``repro/kernels/ops.py``. A tensor on the CPU takes the plain
 PyTorch version in ``ref``; a CUDA tensor takes the hand-written kernel, and
 a kernel that cannot take it raises. There is no backend toggle and no
 fallback from the kernel to the plain version. Under autograd, flash
-attention runs as ``FlashAttentionFn`` with its backward kernel; the decode
-and SSD kernels have no backward and their wrappers raise on an input that
-requires grad (the SSD backward is a later slice's).
+attention runs as ``FlashAttentionFn`` and the SSD scan as ``SSDScanFn``,
+each with its backward kernel; the decode kernel has no backward (serving
+runs it under ``torch.no_grad``).
 """
 from __future__ import annotations
 
@@ -50,6 +50,7 @@ def launch_counts() -> Dict[str, int]:
         "dequantize_int8": ik.dequantize_launches,
         "decode_attention": dk.launches,
         "ssd_scan": sk.launches,
+        "ssd_scan_bwd": sk.bwd_launches,
     }
 
 
@@ -61,6 +62,7 @@ def reset_launch_counts() -> None:
     ik.dequantize_launches = 0
     dk.launches = 0
     sk.launches = 0
+    sk.bwd_launches = 0
 
 
 def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -112,7 +114,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
 
 def ssd_scan(x: torch.Tensor, dtA: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
              C_: torch.Tensor, *, chunk: int = 256):
-    """Mamba2 SSD from a zero state: (y f32 (B, S, H, P), state f32 (B, H, N, P))."""
+    """Mamba2 SSD from a zero state: (y f32 (B, S, H, P), state f32 (B, H, N, P)).
+    Where autograd is on and an input requires grad, ``SSDScanFn`` (the
+    forward kernel with its states, then the backward kernel)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dtA, dt, B_, C_)):
+        return sk.SSDScanFn.apply(x, dtA, dt, B_, C_, chunk)
     if x.is_cuda:
         return sk.ssd_scan_cuda(x, dtA, dt, B_, C_, chunk=chunk)
     return ref.ssd_chunked(x, dtA, dt, B_, C_, chunk=chunk)

@@ -151,11 +151,14 @@ def ssd_chunked(
     B_: torch.Tensor,    # (B, S, N)
     C_: torch.Tensor,    # (B, S, N)
     chunk: int = 256,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    states: bool = False,
+):
     """Mamba2 SSD in its chunked matrix form, from a zero state, one chunk
     at a time: the within-chunk term ``(C.B^T * L).(x dt)`` with
     ``L[i, j] = exp(cum_i - cum_j)`` for ``i >= j``, the carried-state term
-    and the state update. Returns (y f32 (B, S, H, P), state f32 (B, H, N, P))."""
+    and the state update. Returns (y f32 (B, S, H, P), state f32 (B, H, N, P));
+    given ``states=True`` also the state entering each chunk, f32
+    (B, S / chunk, H, N, P), which the backward reads."""
     b, s, h, p = x.shape
     n = B_.shape[-1]
     q = min(chunk, s)
@@ -163,8 +166,9 @@ def ssd_chunked(
         raise ValueError(f"sequence {s} is not a multiple of the chunk {q}")
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
     state = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
-    ys = []
+    ys, entering = [], []
     for s0 in range(0, s, q):
+        entering.append(state)
         xk = x[:, s0:s0 + q].float()
         ak, dk = dtA[:, s0:s0 + q].float(), dt[:, s0:s0 + q].float()
         bk, ck = B_[:, s0:s0 + q].float(), C_[:, s0:s0 + q].float()
@@ -179,7 +183,89 @@ def ssd_chunked(
         s_chunk = torch.einsum("bqn,bqh,bqhp->bhnp", bk, to_end, xs)
         state = state * torch.exp(cum[:, -1, :])[:, :, None, None] + s_chunk
         ys.append(y_diag + y_off)
+    if states:
+        return torch.cat(ys, dim=1), state, torch.stack(entering, dim=1)
     return torch.cat(ys, dim=1), state
+
+
+def ssd_chunked_bwd(
+    x: torch.Tensor,      # (B, S, H, P)
+    dtA: torch.Tensor,    # (B, S, H)
+    dt: torch.Tensor,     # (B, S, H)
+    B_: torch.Tensor,     # (B, S, N)
+    C_: torch.Tensor,     # (B, S, N)
+    dy: torch.Tensor,     # (B, S, H, P), the gradient of y
+    dstate: Optional[torch.Tensor] = None,   # (B, H, N, P), of the final state
+    chunk: int = 256,
+    states: Optional[torch.Tensor] = None,   # (B, S / chunk, H, N, P), entering each chunk
+):
+    """(dx, d dtA, d dt, dB, dC) of ``ssd_chunked`` from the explicit
+    formulas, in f32, chunk by chunk from the last, each returned in its
+    input's dtype. Per chunk, with ``cum`` the cumsum of dtA, ``xs = x dt``,
+    ``L[i, j] = exp(cum_i - cum_j)`` (i >= j, else 0), ``S = C.B^T``,
+    ``M[i, j] = dy_i . xs_j``, ``W = S * M * L``, ``e_i = exp(cum_i)``,
+    ``t_j = exp(cum_end - cum_j)``, ``h`` the state entering the chunk and
+    ``dh`` the gradient of the state leaving it:
+
+      dxs_j   = sum_{i>=j} S_ij L_ij dy_i + t_j (B_j . dh);  dx = dxs dt,
+                d dt_j = dxs_j . x_j
+      dC_i    = sum_h [ sum_j (M L)_ij B_j + e_i (h . dy_i) ]
+      dB_j    = sum_h [ sum_i (M L)_ij C_i + t_j (dh . xs_j) ]
+      d cum_i = sum_j W_ij - sum_k W_ki + e_i (C_i h) . dy_i
+                - t_i (B_i dh) . xs_i, the last step also
+                + sum_j t_j (B_j dh) . xs_j + e_end sum(h * dh);
+                d dtA is its reverse cumsum within the chunk
+      dh     <- e_end dh + sum_i e_i C_i^T dy_i   (for the chunk before)
+
+    ``dstate`` None is a zero gradient; ``states`` None recomputes them."""
+    b, s, h, p = x.shape
+    n = B_.shape[-1]
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"sequence {s} is not a multiple of the chunk {q}")
+    nc = s // q
+    if states is None:
+        states = ssd_chunked(x, dtA, dt, B_, C_, chunk=chunk, states=True)[2]
+
+    def chunks(t: torch.Tensor) -> torch.Tensor:
+        return t.float().reshape(b, nc, q, *t.shape[2:])
+
+    xk, ak, dk, bk, ck, gk = (chunks(t) for t in (x, dtA, dt, B_, C_, dy))
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))[None, :, :, None]
+    zero = torch.zeros((), device=x.device)
+    dh = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device) if dstate is None \
+        else dstate.float()
+    out = {k: [None] * nc for k in ("dx", "ddtA", "ddt", "dB", "dC")}
+    for c in reversed(range(nc)):
+        xc, dtc, bc, cc, gc = xk[:, c], dk[:, c], bk[:, c], ck[:, c], gk[:, c]
+        hc = states[:, c].float()
+        cum = torch.cumsum(ak[:, c], dim=1)                               # (B, Q, H)
+        diff = cum[:, :, None, :] - cum[:, None, :, :]                    # (B, i, j, H)
+        L = torch.where(tri, torch.exp(torch.where(tri, diff, zero)), zero)
+        e = torch.exp(cum)
+        e_end = e[:, -1]                                                  # (B, H)
+        t = torch.exp(cum[:, -1:, :] - cum)
+        xs = xc * dtc[..., None]
+        S = torch.einsum("bin,bjn->bij", cc, bc)
+        M = torch.einsum("bihp,bjhp->bijh", gc, xs)
+        SL, ML = S[..., None] * L, M * L
+        W = SL * M
+        Bdh = torch.einsum("bjn,bhnp->bjhp", bc, dh)
+        dxs = torch.einsum("bijh,bihp->bjhp", SL, gc) + t[..., None] * Bdh
+        out["dx"][c] = dxs * dtc[..., None]
+        out["ddt"][c] = (dxs * xc).sum(-1)
+        out["dC"][c] = torch.einsum("bijh,bjn->bin", ML, bc) \
+            + torch.einsum("bih,bhnp,bihp->bin", e, hc, gc)
+        out["dB"][c] = torch.einsum("bijh,bin->bjn", ML, cc) \
+            + torch.einsum("bjh,bhnp,bjhp->bjn", t, dh, xs)
+        tail = t * (Bdh * xs).sum(-1)                                     # (B, Q, H)
+        dcum = W.sum(2) - W.sum(1) + e * (torch.einsum("bin,bhnp->bihp", cc, hc) * gc).sum(-1) \
+            - tail
+        dcum[:, -1] += tail.sum(1) + e_end * (hc * dh).sum((-1, -2))
+        out["ddtA"][c] = torch.flip(torch.cumsum(torch.flip(dcum, (1,)), 1), (1,))
+        dh = dh * e_end[..., None, None] + torch.einsum("bih,bin,bihp->bhnp", e, cc, gc)
+    return tuple(torch.cat(out[k], dim=1).to(like.dtype)
+                 for k, like in (("dx", x), ("ddtA", dtA), ("ddt", dt), ("dB", B_), ("dC", C_)))
 
 
 def quantize_int8(x: torch.Tensor, tile: int = 128):

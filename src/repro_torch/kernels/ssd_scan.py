@@ -13,15 +13,27 @@ Pallas kernel writes y in x's type). The bf16 kernel takes chunks of a
 multiple of 16 steps; ``pad_chunks`` pads any other chunk the reference
 takes (a prompt shorter than the chunk, or a small chunk) with zero steps,
 which leave the state as it is.
+
+Given ``states=True`` the forward also writes the state entering each
+chunk, (B, S / chunk, H, N, P) f32. ``ssd_scan_bwd_cuda`` wraps the backward
+of ``csrc/ssd_scan_bwd.cu`` (the JAX package has no kernel for it: XLA
+differentiates ``ssd_chunked``): one block per (head, batch row) walks the
+chunks from the last and writes dx, d dtA, d dt and the head's parts of dB
+and dC, then a second kernel sums those over the heads in a fixed order;
+``bwd_launch_config`` gives the first launch. It takes any chunk, so the
+backward pads nothing. ``SSDScanFn`` joins the two under autograd, saving
+the inputs and the states; on CPU tensors it runs the plain versions in
+``ref``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ref
 
 MAX_STATE = 128       # N
 MAX_HEAD_DIM = 64     # P
@@ -30,13 +42,22 @@ THREADS = 128         # four warps, 16 query rows each
 PBLK = 64             # columns of P a block owns where P allows, else 32 or 16
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on an H100
 _SIGNATURES = {
-    "ssd_scan_fwd": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "ssd_scan_fwd": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
                      ctypes.c_int),
     "ssd_scan_launch": ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 3, ctypes.c_int),
 }
+_BWD_SIGNATURES = {
+    "ssd_scan_bwd": ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+                     ctypes.c_int),
+    "ssd_scan_bwd_launch": ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 3, ctypes.c_int),
+}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# The backward's gradient kernel, as csrc/ssd_scan_bwd.cu sets it.
+BWD_THREADS = 256     # 16 x 16 threads
+BWD_TILE = 64         # steps of a tile
 
 launches = 0
+bwd_launches = 0
 
 
 def launch_config(b: int, h: int, p: int, n: int, q: int) -> tuple:
@@ -57,6 +78,26 @@ def launch_config(b: int, h: int, p: int, n: int, q: int) -> tuple:
     if smem > SMEM_LIMIT:
         raise ValueError(f"chunk {q} needs {smem} bytes of shared memory, over {SMEM_LIMIT}")
     return (p // pblk, h, b), THREADS, smem
+
+
+def bwd_launch_config(b: int, h: int, p: int, n: int, q: int) -> tuple:
+    """((grid x, y, z), threads, dynamic shared bytes) of the backward's
+    gradient kernel for batch ``b``, ``h`` heads of ``p`` columns, state
+    ``n`` and chunk ``q``: one block per (head, batch row). The shared
+    memory holds the state entering the chunk and its gradient (``n`` rows
+    of ``p + 1`` f32), transposed C and B tiles (``n`` rows of 65 f32),
+    transposed dy and x dt tiles (``p`` rows of 65), three 64 x 65 tiles
+    (M L, S L, W), six f32 values a step of the chunk and 16 for
+    reductions. Raises ValueError on a shape the kernel does not take."""
+    if not (0 < n <= MAX_STATE and 0 < p <= MAX_HEAD_DIM and q > 0 and b > 0 and h > 0):
+        raise ValueError(f"the SSD backward takes a state of at most {MAX_STATE} and a head "
+                         f"dim of at most {MAX_HEAD_DIM}; got state {n}, head dim {p}, chunk {q}")
+    tp = BWD_TILE + 1
+    floats = 2 * n * (p + 1) + 2 * n * tp + 2 * p * tp + 3 * BWD_TILE * tp + 6 * q + 16
+    if 4 * floats > SMEM_LIMIT:
+        raise ValueError(f"chunk {q} needs {4 * floats} bytes of shared memory in the SSD "
+                         f"backward, over {SMEM_LIMIT}")
+    return (h, b, 1), BWD_THREADS, 4 * floats
 
 
 def padded_chunk(q: int) -> int:
@@ -96,11 +137,8 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def ssd_scan_cuda(x: torch.Tensor, dtA: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
-                  C_: torch.Tensor, *, chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, H, P); dtA, dt (B, S, H); B_, C_ (B, S, N). Returns y (B, S, H, P)
-    and the final state (B, H, N, P), both f32, from a zero initial state."""
-    global launches
+def _check(x, dtA, dt, B_, C_, chunk: int) -> int:
+    """Shapes and dtypes the kernels take; returns the chunk, min(chunk, S)."""
     b, s, h, p = x.shape
     n = B_.shape[-1]
     if dtA.shape != (b, s, h) or dt.shape != (b, s, h) or B_.shape != (b, s, n) \
@@ -114,17 +152,33 @@ def ssd_scan_cuda(x: torch.Tensor, dtA: torch.Tensor, dt: torch.Tensor, B_: torc
     if x.dtype not in _DTYPE_CODE or B_.dtype != x.dtype or C_.dtype != x.dtype:
         raise TypeError(f"x, B and C must share float32 or bfloat16, got {x.dtype}, "
                         f"{B_.dtype}, {C_.dtype}")
+    return q
+
+
+def _on_card(x: torch.Tensor, named) -> None:
+    for name, t in named:
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {x.device}, got {t.device}")
+
+
+def ssd_scan_cuda(x: torch.Tensor, dtA: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
+                  C_: torch.Tensor, *, chunk: int = 256, states: bool = False):
+    """x (B, S, H, P); dtA, dt (B, S, H); B_, C_ (B, S, N). Returns y (B, S, H, P)
+    and the final state (B, H, N, P), both f32, from a zero initial state;
+    given ``states=True`` also the state entering each chunk, f32
+    (B, S / chunk, H, N, P). The result is not differentiable: autograd
+    goes through ``SSDScanFn``."""
+    global launches
+    b, s, h, p = x.shape
+    n = B_.shape[-1]
+    q = _check(x, dtA, dt, B_, C_, chunk)
     q16 = padded_chunk(q) if x.dtype == torch.bfloat16 else q
     if x.dtype == torch.bfloat16:
         launch_config(b, h, p, n, q16)
     elif not (0 < n <= MAX_STATE and n % 4 == 0 and 0 < p <= MAX_HEAD_DIM and p % 4 == 0):
         raise ValueError(f"state {n} and head dim {p} must be multiples of 4, at most "
                          f"{MAX_STATE} and {MAX_HEAD_DIM}")
-    for name, t in (("x", x), ("dtA", dtA), ("dt", dt), ("B", B_), ("C", C_)):
-        if not t.is_cuda or t.device != x.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {x.device}, got {t.device}")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError(f"the SSD kernel has no backward; {name} requires grad")
+    _on_card(x, (("x", x), ("dtA", dtA), ("dt", dt), ("B", B_), ("C", C_)))
     if q16 != q:
         (x, dtA, dt, B_, C_), _ = pad_chunks(x, dtA, dt, B_, C_, q)
     x, B_, C_ = _aligned(x), _aligned(B_), _aligned(C_)
@@ -133,14 +187,95 @@ def ssd_scan_cuda(x: torch.Tensor, dtA: torch.Tensor, dt: torch.Tensor, B_: torc
     sp = x.shape[1]
     y = torch.empty((b, sp, h, p), dtype=torch.float32, device=x.device)
     state = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
+    entering = torch.empty((b, s // q, h, n, p), dtype=torch.float32, device=x.device) \
+        if states else None
     if y.numel() == 0:
-        return y, state.zero_()
+        state.zero_()
+        return (y, state, entering.zero_()) if states else (y, state)
     with torch.cuda.device(x.device):
         rc = _build.load("ssd_scan", _SIGNATURES).ssd_scan_fwd(
             x.data_ptr(), dtA.data_ptr(), dt.data_ptr(), B_.data_ptr(), C_.data_ptr(),
-            y.data_ptr(), state.data_ptr(), _DTYPE_CODE[x.dtype], b, sp, h, n, p, q16,
-            torch.cuda.current_stream().cuda_stream)
+            y.data_ptr(), state.data_ptr(), entering.data_ptr() if states else None,
+            _DTYPE_CODE[x.dtype], b, sp, h, n, p, q16, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel failed: CUDA error {rc}")
     launches += 1
-    return (y if q16 == q else unpad_chunks(y, q, q16)), state
+    y = y if q16 == q else unpad_chunks(y, q, q16)
+    return (y, state, entering) if states else (y, state)
+
+
+def ssd_scan_bwd_cuda(x: torch.Tensor, dtA: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
+                      C_: torch.Tensor, states: torch.Tensor, dy: torch.Tensor,
+                      dstate: Optional[torch.Tensor] = None, *, chunk: int = 256):
+    """(dx, d dtA, d dt, dB, dC) of ``ssd_scan_cuda`` at these inputs, each in
+    its input's dtype, from ``states`` (the forward's, (B, S / chunk, H, N,
+    P) f32), the gradient ``dy`` of y (f32, taken as it comes) and
+    ``dstate`` of the final state (None is zero). Two launches (the
+    gradients, then the sum of dB and dC over the heads), counted as one
+    call."""
+    global bwd_launches
+    b, s, h, p = x.shape
+    n = B_.shape[-1]
+    q = _check(x, dtA, dt, B_, C_, chunk)
+    bwd_launch_config(b, h, p, n, q)
+    if states.shape != (b, s // q, h, n, p) or dy.shape != x.shape \
+            or (dstate is not None and dstate.shape != (b, h, n, p)):
+        raise ValueError(f"states {tuple(states.shape)}, dy {tuple(dy.shape)}, dstate "
+                         f"{None if dstate is None else tuple(dstate.shape)} do not match x "
+                         f"{tuple(x.shape)} at chunk {q}")
+    named = [("x", x), ("dtA", dtA), ("dt", dt), ("B", B_), ("C", C_), ("states", states),
+             ("dy", dy)] + ([("dstate", dstate)] if dstate is not None else [])
+    _on_card(x, named)
+    x, B_, C_ = x.contiguous(), B_.contiguous(), C_.contiguous()
+    dtA32, dt32, states, dy = (t.to(torch.float32).contiguous() for t in (dtA, dt, states, dy))
+    ds = None if dstate is None else dstate.to(torch.float32).contiguous()
+    dx = torch.empty_like(x)
+    ddtA = torch.empty((b, s, h), dtype=torch.float32, device=x.device)
+    ddt = torch.empty_like(ddtA)
+    dB, dC = torch.empty_like(B_), torch.empty_like(C_)
+    # Each head's part of dB and dC, summed over the heads by the second launch;
+    # freed when the call returns.
+    parts = torch.empty((2, b, s, h, n), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _build.load("ssd_scan_bwd", _BWD_SIGNATURES).ssd_scan_bwd(
+            x.data_ptr(), dtA32.data_ptr(), dt32.data_ptr(), B_.data_ptr(), C_.data_ptr(),
+            states.data_ptr(), dy.data_ptr(), None if ds is None else ds.data_ptr(),
+            dx.data_ptr(), ddtA.data_ptr(), ddt.data_ptr(), parts[0].data_ptr(),
+            parts[1].data_ptr(), dB.data_ptr(), dC.data_ptr(), _DTYPE_CODE[x.dtype], b, s, h, n,
+            p, q, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan_bwd kernel failed: CUDA error {rc}")
+    bwd_launches += 1
+    return dx, ddtA.to(dtA.dtype), ddt.to(dt.dtype), dB, dC
+
+
+class SSDScanFn(torch.autograd.Function):
+    """The SSD scan under autograd: the forward kernel, which also writes the
+    state entering each chunk, then the backward kernel. Remat reruns
+    ``forward``, which recomputes the states. CPU tensors take the plain
+    versions (``ref.ssd_chunked`` with its states, ``ref.ssd_chunked_bwd``).
+    Returns (y, final state); either may go unused (its gradient is then
+    zero)."""
+
+    @staticmethod
+    def forward(ctx, x, dtA, dt, B_, C_, chunk):
+        ctx.set_materialize_grads(False)
+        if x.is_cuda:
+            y, state, states = ssd_scan_cuda(x, dtA, dt, B_, C_, chunk=chunk, states=True)
+        else:
+            y, state, states = ref.ssd_chunked(x, dtA, dt, B_, C_, chunk=chunk, states=True)
+        ctx.save_for_backward(x, dtA, dt, B_, C_, states)
+        ctx.chunk = chunk
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dtA, dt, B_, C_, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        if x.is_cuda:
+            grads = ssd_scan_bwd_cuda(x, dtA, dt, B_, C_, states, dy, dstate, chunk=ctx.chunk)
+        else:
+            grads = ref.ssd_chunked_bwd(x, dtA, dt, B_, C_, dy, dstate, chunk=ctx.chunk,
+                                        states=states)
+        return (*grads, None)

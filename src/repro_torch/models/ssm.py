@@ -6,9 +6,13 @@ parameter names and shapes (``w_z``/``w_x`` ``(D, H, P)``, ``w_dt``
 f32), so converted weights load as they are. The full-sequence scan goes to
 ``ops.ssd_scan``: the CUDA kernel for tensors on the card, ``ssd_chunked``
 (the chunked matrix form, with the JAX package's semantics) on the CPU. Both
-start from a zero state and return y and the final state in f32. Decode is
-the per-token recurrence on the f32 state in plain PyTorch, as in the JAX
-package, which has no kernel for it.
+start from a zero state and return y and the final state in f32. Under
+autograd (training) the scan runs as ``SSDScanFn``: the forward kernel with
+the state entering each chunk, then the backward kernel
+(``csrc/ssd_scan_bwd.cu``); on the CPU the plain forward and backward in
+``ref``. Per-block remat reruns the forward, which recomputes those states.
+Decode is the per-token recurrence on the f32 state in plain PyTorch, as in
+the JAX package, which has no kernel for it.
 """
 from __future__ import annotations
 

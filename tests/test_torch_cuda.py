@@ -231,7 +231,7 @@ def test_cuda_flash_refuses_grad_and_counts_launches(card):
         tops.dequantize_int8(*tops.quantize_int8(q[0]), dtype=torch.float32)
     assert tops.launch_counts() == {"flash_attention": 2, "flash_attention_bwd": 1,
                                     "quantize_int8": 1, "dequantize_int8": 1,
-                                    "decode_attention": 0, "ssd_scan": 0}
+                                    "decode_attention": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
 # b, s, h, hkv, hd, causal, window, softcap: GQA groups of 4 (mistral), a window
@@ -573,6 +573,112 @@ def test_cuda_ssd_scan_takes_unaligned_views(card, dtype):
     ye, ste = tref.ssd_chunked(*args, chunk=64)
     torch.testing.assert_close(y, ye, atol=2e-3, rtol=2e-3)
     torch.testing.assert_close(st, ste, atol=2e-3, rtol=2e-3)
+
+
+def _rel(got, want):
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+# The backward against ref.ssd_chunked_bwd, per gradient, relative L2: f32 to
+# 1e-5 (f32 FMA on both sides, another summation order); bf16 to 1e-2 (the
+# kernel computes in f32 from the bf16 inputs, as the plain version does, and
+# dx, dB and dC are rounded to bf16 by both: about 2e-3).
+SSD_BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+SSD_BWD_CASES = [
+    # what, b, s, h, p, n, chunk, a_log, dstate
+    ("smoke shape", 4, 32, 8, 16, 16, 16, 0.0, False),
+    ("3 chunks", 2, 192, 3, 64, 128, 64, 0.0, True),
+    ("slow decay", 1, 768, 2, 64, 128, 256, -4.0, False),
+    ("S 100, chunk 256", 2, 100, 4, 64, 128, 256, -1.0, True),
+    ("tile tails: chunk 100", 1, 300, 2, 48, 80, 100, -1.0, True),
+    ("N 16, P 16, chunk 8", 2, 64, 3, 16, 16, 8, -2.0, False),
+]
+
+
+def _ssd_bwd_args(card, dt, b, s, h, p, n, a_log, dstate):
+    args = _ssd_case(card, dt, b, s, h, p, n, a_log)
+    dy = torch.from_numpy(_normal((b, s, h, p), 25)).to(card)
+    ds = torch.from_numpy(_normal((b, h, n, p), 26)).to(card) if dstate else None
+    return args, dy, ds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("what,b,s,h,p,n,chunk,a_log,dstate", SSD_BWD_CASES)
+def test_cuda_ssd_bwd_matches_plain(card, dtype, what, b, s, h, p, n, chunk, a_log, dstate):
+    """The forward's states and the backward's five gradients against the
+    plain versions; two calls give the same bits."""
+    args, dy, ds = _ssd_bwd_args(card, _TORCH[dtype], b, s, h, p, n, a_log, dstate)
+    y0, st0 = tsk.ssd_scan_cuda(*args, chunk=chunk)
+    y, st, states = tsk.ssd_scan_cuda(*args, chunk=chunk, states=True)
+    assert torch.equal(y, y0) and torch.equal(st, st0)
+    _, _, want_states = tref.ssd_chunked(*args, chunk=chunk, states=True)
+    assert states.shape == (b, s // min(chunk, s), h, n, p)
+    torch.testing.assert_close(states, want_states, atol=2e-3, rtol=2e-3)
+    tsk.bwd_launches = 0
+    grads = tsk.ssd_scan_bwd_cuda(*args, states, dy, ds, chunk=chunk)
+    assert tsk.bwd_launches == 1
+    want = tref.ssd_chunked_bwd(*args, dy, ds, chunk=chunk, states=states)
+    for name, got, exp, like in zip(("dx", "ddtA", "ddt", "dB", "dC"), grads, want, args):
+        assert got.dtype == like.dtype and got.shape == like.shape, name
+        assert torch.isfinite(got).all(), name
+        assert _rel(got, exp) <= SSD_BWD_TOL[dtype], (name, _rel(got, exp))
+    again = tsk.ssd_scan_bwd_cuda(*args, states, dy, ds, chunk=chunk)
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_bwd_launch_config_matches_the_kernel(card):
+    import ctypes
+    lib = _build.load("ssd_scan_bwd", tsk._BWD_SIGNATURES)
+    for b, h, p, n, q in [(2, 64, 64, 128, 256), (4, 8, 16, 16, 16), (1, 3, 48, 80, 100),
+                          (1, 2, 64, 128, 640), (2, 1, 1, 1, 1)]:
+        grid = (ctypes.c_int * 3)()
+        threads, smem = ctypes.c_int(), ctypes.c_int()
+        assert lib.ssd_scan_bwd_launch(b, h, n, p, q, grid, ctypes.byref(threads),
+                                       ctypes.byref(smem)) == 0
+        assert (tuple(grid), threads.value, smem.value) == tsk.bwd_launch_config(b, h, p, n, q)
+    for b, h, p, n, q in [(1, 1, 80, 64, 64), (1, 1, 64, 144, 64), (1, 1, 64, 128, 2000),
+                          (1, 1, 0, 64, 64), (1, 1, 64, 0, 64)]:
+        grid = (ctypes.c_int * 3)()
+        threads, smem = ctypes.c_int(), ctypes.c_int()
+        assert lib.ssd_scan_bwd_launch(b, h, n, p, q, grid, ctypes.byref(threads),
+                                       ctypes.byref(smem)) != 0
+        with pytest.raises(ValueError):
+            tsk.bwd_launch_config(b, h, p, n, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_fn_under_autograd_and_remat(card, dtype):
+    """ops.ssd_scan under autograd goes through SSDScanFn: one forward and one
+    backward launch, the same gradients as the backward wrapper's; under
+    torch.utils.checkpoint the forward runs twice and the gradients are the
+    same bits; a loss on the final state alone reaches the inputs too."""
+    args, dy, ds = _ssd_bwd_args(card, _TORCH[dtype], 2, 192, 4, 64, 128, -1.0, True)
+    results = []
+    for remat in (False, True):
+        leaves = [t.clone().requires_grad_() for t in args]
+        tops.reset_launch_counts()
+        if remat:
+            y, st = torch.utils.checkpoint.checkpoint(
+                lambda *a: tops.ssd_scan(*a, chunk=64), *leaves, use_reentrant=False)
+        else:
+            y, st = tops.ssd_scan(*leaves, chunk=64)
+        torch.autograd.backward((y, st), (dy, ds))
+        counts = tops.launch_counts()
+        assert (counts["ssd_scan"], counts["ssd_scan_bwd"]) == (2 if remat else 1, 1)
+        results.append([t.grad for t in leaves])
+    assert all(torch.equal(a, b) for a, b in zip(*results))
+    _, _, states = tsk.ssd_scan_cuda(*args, chunk=64, states=True)
+    want = tsk.ssd_scan_bwd_cuda(*args, states, dy, ds, chunk=64)
+    assert all(torch.equal(a, b) for a, b in zip(results[0], want))
+    leaves = [t.clone().requires_grad_() for t in args]
+    _, st = tops.ssd_scan(*leaves, chunk=64)
+    (st * ds).sum().backward()
+    want = tsk.ssd_scan_bwd_cuda(*args, states, torch.zeros_like(dy), ds, chunk=64)
+    assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want))
 
 
 @pytest.mark.cuda

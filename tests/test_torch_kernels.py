@@ -599,7 +599,7 @@ def test_launch_counts_reset():
     tops.reset_launch_counts()
     assert tops.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
                                     "quantize_int8": 0, "dequantize_int8": 0,
-                                    "decode_attention": 0, "ssd_scan": 0}
+                                    "decode_attention": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
     # The plain versions launch nothing.
     tops.quantize_int8(torch.ones(2, 128))
     assert sum(tops.launch_counts().values()) == 0

@@ -68,7 +68,11 @@ def build(csrc: Path, extra_sources=()) -> dict:
             print(out)
             raise RuntimeError(f"nvcc failed for {name}")
         lib = ctypes.CDLL(str(OUT / f"libssd_scan_{name}.so"))
-        lib.ssd_scan_fwd.argtypes, lib.ssd_scan_fwd.restype = _SIGNATURES["ssd_scan_fwd"]
+        argtypes, restype = _SIGNATURES["ssd_scan_fwd"]
+        # Sources from before the per-chunk states output take one pointer less.
+        lib.takes_states = "float* states" in Path(variants[name]).read_text()
+        lib.ssd_scan_fwd.argtypes = argtypes if lib.takes_states else argtypes[1:]
+        lib.ssd_scan_fwd.restype = restype
         libs[name] = lib
     return libs
 
@@ -78,9 +82,10 @@ def call(lib, x, dtA, dt, B_, C_, chunk):
     n = B_.shape[-1]
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     state = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
-    rc = lib.ssd_scan_fwd(x.data_ptr(), dtA.data_ptr(), dt.data_ptr(), B_.data_ptr(),
-                          C_.data_ptr(), y.data_ptr(), state.data_ptr(), 1, b, s, h, n, p,
-                          chunk, torch.cuda.current_stream().cuda_stream)
+    ptrs = (x.data_ptr(), dtA.data_ptr(), dt.data_ptr(), B_.data_ptr(), C_.data_ptr(),
+            y.data_ptr(), state.data_ptr()) + ((None,) if lib.takes_states else ())
+    rc = lib.ssd_scan_fwd(*ptrs, 1, b, s, h, n, p, chunk,
+                          torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"ssd_scan_fwd failed: CUDA error {rc}")
     return y, state

@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
 """Where a Hapi train step spends its time on one NVIDIA GPU.
 
-    python3 tools/train_trace.py [--layers 8] [--batch 4] [--seq 4096]
+    python3 tools/train_trace.py [--arch mistral-nemo-12b] [--layers 8] [--batch 4] [--seq 4096]
+    python3 tools/train_trace.py --arch mamba2-1.3b --layers 48
 
-Builds mistral-nemo-12b at its published widths, cut to ``--layers`` blocks
-(bf16, seeded random weights), plans the tier split as ``chip_smoke.py``'s
-training phase does (int8 boundary, COS batch 2, microbatch 2), and times
+Builds ``--arch`` (mistral-nemo-12b or mamba2-1.3b) at its published widths,
+cut to ``--layers`` blocks (bf16, seeded random weights), plans the tier
+split as ``chip_smoke.py``'s training phases do (int8 boundary, COS batch 2,
+microbatch 2), and times
 ``build_hapi_train_step`` on one repeated batch, host clock around work that
 ends in ``torch.cuda.synchronize()``: the first step and three more (warm).
 One more warm step runs under ``torch.profiler``: the sum of its kernels'
 device times (the device's busy time; one stream, so kernels do not
 overlap), the idle share of that step's wall time, and the kernel time by
 name, largest first, grouped into f32 matmuls (the head), bf16 matmuls,
-the port's own kernels and the rest. Prints the card's name and power
-limit and one JSON line.
+the port's own kernels and the rest, and each of the port's kernels apart.
+Prints the card's name and power limit and one JSON line.
 """
 from __future__ import annotations
 
@@ -40,14 +42,21 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.train.steps import build_hapi_train_step, init_train_state  # noqa: E402
 
-# Kernel names of the port's own CUDA kernels, as the profiler reports them.
-PORT_KERNELS = ("flash_fwd", "bwd_dkdv", "bwd_dq", "bwd_dsum", "quantize", "dequantize")
+# Kernel names of the port's own CUDA kernels, as the profiler reports them
+# (a name matches where it contains one of these).
+PORT_KERNELS = ("flash_fwd", "bwd_dkdv", "bwd_dq", "bwd_dsum", "dequantize", "quantize",
+                "ssd_scan_mma", "ssd_scan_kernel", "ssd_bwd_kernel", "ssd_bwd_reduce")
+
+
+def port_kernel(name: str):
+    """The PORT_KERNELS entry ``name`` contains, or None."""
+    return next((k for k in PORT_KERNELS if k in name), None)
 
 
 def group(name: str) -> str:
     """cuBLAS's f32 GEMMs (no TF32) run on FMA, as SIMT "sgemm" or
     "gemm_f32f32" kernels; its bf16 GEMMs are "nvjet" or "bf16" ones."""
-    if any(k in name for k in PORT_KERNELS):
+    if port_kernel(name):
         return "port kernels"
     low = name.lower()
     if "sgemm" in low or "gemm_f32" in low:
@@ -59,6 +68,8 @@ def group(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="mistral-nemo-12b",
+                    choices=("mistral-nemo-12b", "mamba2-1.3b"))
     ap.add_argument("--layers", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=4096)
@@ -69,7 +80,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    cfg = dataclasses.replace(get_config("mistral-nemo-12b"), n_layers=args.layers)
+    cfg = dataclasses.replace(get_config(args.arch), n_layers=args.layers)
     shape = ShapeConfig("train", "train", args.seq, args.batch)
     hapi = HapiConfig(compress_transfer=True, cos_batch=2, cos_batch_min=1)
     rc = RunConfig(model=cfg, shape=shape, hapi=hapi,
@@ -101,19 +112,25 @@ def main() -> int:
     kernels = kernel_times(prof)
     busy = sum(kernels.values())
     groups: dict = {}
+    port: dict = {}
     for name, ms in kernels.items():
         groups[group(name)] = groups.get(group(name), 0.0) + ms
+        if port_kernel(name):
+            port[port_kernel(name)] = port.get(port_kernel(name), 0.0) + ms
     top = dict(list(kernels.items())[:15])
-    row = {"layers": args.layers, "split": plan.split, "batch": args.batch, "seq": args.seq,
+    row = {"arch": args.arch, "layers": args.layers, "split": plan.split, "batch": args.batch,
+           "seq": args.seq,
            "cold_ms": cold, "warm_ms": warm, "traced_ms": traced, "device_busy_ms": busy,
            "idle_share": 1 - busy / traced if busy else None, "groups_ms": groups,
-           "launches_per_step": launches, "top_kernels_ms": top}
-    print(f"train step, mistral-nemo-12b at {args.layers} blocks (split {plan.split}), "
+           "port_kernels_ms": port, "launches_per_step": launches, "top_kernels_ms": top}
+    print(f"train step, {args.arch} at {args.layers} blocks (split {plan.split}), "
           f"{args.batch} x {args.seq}: cold {cold:.1f} ms, warm "
           f"{', '.join(f'{x:.1f}' for x in warm)} ms, traced {traced:.1f} ms; device busy "
           f"{busy:.1f} ms (idle share {row['idle_share']}); launches {launches}")
     for name, ms in groups.items():
         print(f"  {ms:9.3f} ms  [{name}]")
+    for name, ms in port.items():
+        print(f"  {ms:9.3f} ms  [{name}] {100 * ms / busy:.1f}% of the device time")
     for name, ms in top.items():
         print(f"  {ms:9.3f} ms  {name[:110]}")
     print(smi)
