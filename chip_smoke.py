@@ -673,10 +673,18 @@ def check_ssd() -> dict:
 
 
 # The SSD backward against ref.ssd_chunked_bwd, relative L2 per gradient: f32
-# to 1e-5 (f32 on both sides, another summation order); bf16 to 1e-2 (the
-# kernel computes in f32 from the bf16 inputs as the plain version does;
-# dx, dB and dC are rounded to bf16 on both sides).
+# to 1e-5 (the FMA kernel, f32 on both sides, another summation order); bf16
+# to 1e-2 (the tensor-core route splits every f32 operand into bf16 hi/lo
+# halves, about 16 bits; dx, dB and dC are rounded to bf16 on both sides).
+# The CUDA-core FMA kernel (commit b3cc6c0; the f32 route today), f32
+# products from the bf16 inputs, came to at most 1.06e-4 on these cases;
+# each bf16 error is logged beside that.
 SSD_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+SSD_BWD_FMA_REL = 1.06e-4
+# The tensor-core route's per-chunk state gradient (launches (a) and (b)
+# alone) against ref.ssd_bwd_chunk_dstates: f32 sums on both sides, C^T dy
+# with dy split hi/lo.
+SSD_DSTATE_TOL = 1e-5
 SSD_BWD_CASES = [
     # b, s, h, p, n, chunk, dtype, a_log (None: rates -exp(0.3 z)), final-state gradient
     (2, 4096, 64, 64, 128, 256, torch.bfloat16, None, False),   # the training path's shape
@@ -707,8 +715,9 @@ def ssd_bwd_bound(b, s, h, p, n, q, itemsize):
 
 def check_ssd_bwd() -> dict:
     """The forward's states and the backward kernel's five gradients against
-    the plain versions; two calls are bit-equal; then its time at the
-    training path's shape beside its bound."""
+    the plain versions (on bf16, also the tensor-core route's per-chunk state
+    gradient); two calls are bit-equal; then its time at the training path's
+    shape beside its bound."""
     row = None
     for b, s, h, p, n, chunk, dt, a_log, with_ds in SSD_BWD_CASES:
         args = ssd_inputs(b, s, h, p, n, dt, seed=40, a_log=a_log)
@@ -720,6 +729,19 @@ def check_ssd_bwd() -> dict:
         want_states = ref.ssd_chunked(*args, chunk=chunk, states=True)[2]
         torch.testing.assert_close(states, want_states, atol=SSD_TOL, rtol=SSD_TOL)
         del y, st, y0, st0, want_states
+        dh_note = ""
+        if dt == torch.bfloat16:
+            dh = ssd_scan.ssd_bwd_chunk_dstates_cuda(args[1], args[4], dy, ds, chunk=chunk)
+            want_dh = ref.ssd_bwd_chunk_dstates(*args, dy, ds, chunk=chunk)
+            if bool(want_dh.any()):
+                dh_err = rel_err(dh, want_dh)
+                check(dh_err <= SSD_DSTATE_TOL, f"ssd_scan_bwd per-chunk dh: relative L2 "
+                      f"{dh_err:.3g} > {SSD_DSTATE_TOL:g}")
+                dh_note = f"; per-chunk dh {dh_err:.3g} (tol {SSD_DSTATE_TOL:g})"
+            else:  # one chunk and no final-state gradient: dh is zero
+                check(not bool(dh.any()), "ssd_scan_bwd per-chunk dh: not zero")
+                dh_note = "; per-chunk dh zero, as the plain version's"
+            del dh, want_dh
         grads = ssd_scan_bwd_cuda(*args, states, dy, ds, chunk=chunk)
         want = ref.ssd_chunked_bwd(*args, dy, ds, chunk=chunk, states=states)
         errs = {}
@@ -732,10 +754,12 @@ def check_ssd_bwd() -> dict:
         again = ssd_scan_bwd_cuda(*args, states, dy, ds, chunk=chunk)
         check(all(torch.equal(a, b_) for a, b_ in zip(grads, again)),
               "ssd_scan_bwd: two calls differ")
-        log(f"ssd_bwd B={b} S={s} H={h} P={p} N={n} chunk={chunk} {str(dt)[6:]}"
+        route = ssd_scan.bwd_route(dt, n, p, min(chunk, s))
+        fma = f", the FMA kernel at most {SSD_BWD_FMA_REL:g}" if dt == torch.bfloat16 else ""
+        log(f"ssd_bwd B={b} S={s} H={h} P={p} N={n} chunk={chunk} {str(dt)[6:]} ({route})"
             f"{' slow decay' if a_log == -4.0 else ''}{' dstate' if with_ds else ''}: relative "
             f"L2 {', '.join(f'{k} {v:.3g}' for k, v in errs.items())} (tol "
-            f"{SSD_BWD_TOL[dt]:g}); two calls bit-equal")
+            f"{SSD_BWD_TOL[dt]:g}{fma}){dh_note}; two calls bit-equal")
         if row is None:
             (sb, sby), flops, fma_ms = ssd_bwd_bound(b, s, h, p, n, chunk, 2)
             row = dict(max_abs_err=max(float((g.float() - w.float()).abs().max())

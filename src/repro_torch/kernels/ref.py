@@ -268,6 +268,103 @@ def ssd_chunked_bwd(
                  for k, like in (("dx", x), ("ddtA", dtA), ("ddt", dt), ("dB", B_), ("dC", C_)))
 
 
+def ssd_bwd_chunk_dstates(
+    x: torch.Tensor,      # (B, S, H, P)
+    dtA: torch.Tensor,    # (B, S, H)
+    dt: torch.Tensor,     # (B, S, H)
+    B_: torch.Tensor,     # (B, S, N)
+    C_: torch.Tensor,     # (B, S, N)
+    dy: torch.Tensor,     # (B, S, H, P), the gradient of y
+    dstate: Optional[torch.Tensor] = None,   # (B, H, N, P), of the final state
+    chunk: int = 256,
+) -> torch.Tensor:
+    """The gradient of the state leaving each chunk, (B, S / chunk, H, N, P)
+    f32: ``dstate`` (None is zero) for the last chunk, then, chunk by chunk
+    from the last, ``dh_{c-1} = e_end,c dh_c + sum_i e_i C_i^T dy_i`` with
+    ``e_i = exp(cum_i)`` over chunk c. The plain version of the tensor-core
+    backward's first two launches (``csrc/ssd_scan_bwd.cu`` (a), (b)); ``x``
+    and ``dt`` do not enter it."""
+    b, s, h, p = x.shape
+    n = B_.shape[-1]
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"sequence {s} is not a multiple of the chunk {q}")
+    nc = s // q
+    cum = torch.cumsum(dtA.float().reshape(b, nc, q, h), dim=2)
+    e = torch.exp(cum)
+    ck, gk = C_.float().reshape(b, nc, q, n), dy.float().reshape(b, nc, q, h, p)
+    dh = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device) if dstate is None \
+        else dstate.float()
+    out = [None] * nc
+    for c in reversed(range(nc)):
+        out[c] = dh
+        dh = dh * e[:, c, -1][..., None, None] + torch.einsum("bih,bin,bihp->bhnp", e[:, c],
+                                                              ck[:, c], gk[:, c])
+    return torch.stack(out, dim=1)
+
+
+def ssd_chunked_bwd_telescoped(
+    x: torch.Tensor,      # (B, S, H, P)
+    dtA: torch.Tensor,    # (B, S, H)
+    dt: torch.Tensor,     # (B, S, H)
+    B_: torch.Tensor,     # (B, S, N)
+    C_: torch.Tensor,     # (B, S, N)
+    dy: torch.Tensor,     # (B, S, H, P)
+    dstate: Optional[torch.Tensor] = None,
+    chunk: int = 256,
+    states: Optional[torch.Tensor] = None,
+):
+    """``ssd_chunked_bwd`` with d dtA taken from the telescoped form of its
+    reverse cumsum, in which no term is subtracted (the form the tensor-core
+    backward computes): for step k of a chunk,
+
+      d dtA_k = sum_{i>=k} sum_{j<k} W_ij + sum_{i>=k} e_i (C_i h) . dy_i
+                + sum_{j<k} t_j (B_j dh) . xs_j + e_end sum(h * dh)
+
+    with W, e, t, h and dh as in ``ssd_chunked_bwd``. The other four
+    gradients are ``ssd_chunked_bwd``'s. Exclusive sums are inclusive sums
+    shifted by one step, so that nothing is subtracted there either."""
+    grads = ssd_chunked_bwd(x, dtA, dt, B_, C_, dy, dstate, chunk=chunk, states=states)
+    b, s, h, p = x.shape
+    n = B_.shape[-1]
+    q = min(chunk, s)
+    nc = s // q
+    if states is None:
+        states = ssd_chunked(x, dtA, dt, B_, C_, chunk=chunk, states=True)[2]
+    dhs = ssd_bwd_chunk_dstates(x, dtA, dt, B_, C_, dy, dstate, chunk=chunk)
+
+    def chunks(t: torch.Tensor) -> torch.Tensor:
+        return t.float().reshape(b, nc, q, *t.shape[2:])
+
+    def shift(t: torch.Tensor) -> torch.Tensor:   # t[:, k] <- t[:, k - 1], 0 at k = 0
+        return torch.cat([torch.zeros_like(t[:, :1]), t[:, :-1]], dim=1)
+
+    xk, ak, dk, bk, ck, gk = (chunks(t) for t in (x, dtA, dt, B_, C_, dy))
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))[None, :, :, None]
+    zero = torch.zeros((), device=x.device)
+    out = []
+    for c in range(nc):
+        xc, dtc, bc, cc, gc = xk[:, c], dk[:, c], bk[:, c], ck[:, c], gk[:, c]
+        hc, dh = states[:, c].float(), dhs[:, c]
+        cum = torch.cumsum(ak[:, c], dim=1)
+        diff = cum[:, :, None, :] - cum[:, None, :, :]
+        L = torch.where(tri, torch.exp(torch.where(tri, diff, zero)), zero)
+        e, t = torch.exp(cum), torch.exp(cum[:, -1:, :] - cum)
+        xs = xc * dtc[..., None]
+        W = torch.einsum("bin,bjn->bij", cc, bc)[..., None] * L \
+            * torch.einsum("bihp,bjhp->bijh", gc, xs)                    # (B, i, j, H)
+        pre = shift(torch.cumsum(W.transpose(1, 2), dim=1)).transpose(1, 2)  # sum_{j<k} W_ik
+        rect = (pre * tri).sum(1)                     # sum over i >= k of pre[i, k]
+        eq = e * (torch.einsum("bin,bhnp->bihp", cc, hc) * gc).sum(-1)
+        tail = t * (torch.einsum("bjn,bhnp->bjhp", bc, dh) * xs).sum(-1)
+        r_eq = torch.flip(torch.cumsum(torch.flip(eq, (1,)), 1), (1,))
+        p_tail = shift(torch.cumsum(tail, 1))
+        z = (hc * dh).sum((-1, -2))
+        out.append(rect + r_eq + p_tail + (torch.exp(cum[:, -1]) * z)[:, None])
+    ddtA = torch.cat(out, dim=1).to(dtA.dtype)
+    return grads[0], ddtA, grads[2], grads[3], grads[4]
+
+
 def quantize_int8(x: torch.Tensor, tile: int = 128):
     """Per-tile symmetric int8 quantization over the last dim.
     Returns (q int8 (..., D), scales f32 (..., D/tile))."""

@@ -582,8 +582,9 @@ def _rel(got, want):
 
 # The backward against ref.ssd_chunked_bwd, per gradient, relative L2: f32 to
 # 1e-5 (f32 FMA on both sides, another summation order); bf16 to 1e-2 (the
-# kernel computes in f32 from the bf16 inputs, as the plain version does, and
-# dx, dB and dC are rounded to bf16 by both: about 2e-3).
+# tensor-core route splits every f32 operand into two bf16 halves, about 16
+# bits, and dx, dB and dC are rounded to bf16 on both sides: observed up to
+# about 2e-4).
 SSD_BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 SSD_BWD_CASES = [
     # what, b, s, h, p, n, chunk, a_log, dstate
@@ -630,23 +631,57 @@ def test_cuda_ssd_bwd_matches_plain(card, dtype, what, b, s, h, p, n, chunk, a_l
 
 @pytest.mark.cuda
 def test_cuda_ssd_bwd_launch_config_matches_the_kernel(card):
+    """Every launch the C side reports for a call, in order, is the one
+    bwd_launch_config gives, on both routes (the tensor-core route at the
+    chunk padded to tiles of 64); a launch past the last and a shape neither
+    route takes are refused on both sides."""
     import ctypes
-    lib = _build.load("ssd_scan_bwd", tsk._BWD_SIGNATURES)
-    for b, h, p, n, q in [(2, 64, 64, 128, 256), (4, 8, 16, 16, 16), (1, 3, 48, 80, 100),
-                          (1, 2, 64, 128, 640), (2, 1, 1, 1, 1)]:
+
+    def launch(code, k, b, s, h, n, p, q):
         grid = (ctypes.c_int * 3)()
         threads, smem = ctypes.c_int(), ctypes.c_int()
-        assert lib.ssd_scan_bwd_launch(b, h, n, p, q, grid, ctypes.byref(threads),
-                                       ctypes.byref(smem)) == 0
-        assert (tuple(grid), threads.value, smem.value) == tsk.bwd_launch_config(b, h, p, n, q)
+        rc = lib.ssd_scan_bwd_launch(code, k, b, s, h, n, p, q, grid, ctypes.byref(threads),
+                                     ctypes.byref(smem))
+        return rc, (tuple(grid), threads.value, smem.value)
+
+    lib = _build.load("ssd_scan_bwd", tsk._BWD_SIGNATURES)
+    for b, h, p, n, q, s in [(2, 64, 64, 128, 256, 4096), (4, 8, 16, 16, 16, 32),
+                             (1, 3, 48, 80, 100, 300), (1, 2, 64, 128, 640, 640),
+                             (2, 1, 1, 1, 1, 1)]:
+        for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+            cfg = tsk.bwd_launch_config(b, h, p, n, q, s=s, dtype=dtype)
+            qk = tsk.padded_chunk(q, tsk.BWD_TILE) if tsk.bwd_route(dtype, n, p, q) == "mma" \
+                else q
+            sk = s // q * qk
+            for k, want in enumerate(cfg.values()):
+                assert launch(code, k, b, sk, h, n, p, qk) == (0, want), (b, h, p, n, q, k)
+            assert launch(code, len(cfg), b, sk, h, n, p, qk)[0] != 0
     for b, h, p, n, q in [(1, 1, 80, 64, 64), (1, 1, 64, 144, 64), (1, 1, 64, 128, 2000),
                           (1, 1, 0, 64, 64), (1, 1, 64, 0, 64)]:
-        grid = (ctypes.c_int * 3)()
-        threads, smem = ctypes.c_int(), ctypes.c_int()
-        assert lib.ssd_scan_bwd_launch(b, h, n, p, q, grid, ctypes.byref(threads),
-                                       ctypes.byref(smem)) != 0
+        for code in (0, 1):
+            assert launch(code, 0, b, q, h, n, p, q)[0] != 0
         with pytest.raises(ValueError):
             tsk.bwd_launch_config(b, h, p, n, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what,b,s,h,p,n,chunk,a_log,dstate", [
+    c for c in SSD_BWD_CASES if c[4] % 16 == 0 and c[5] % 16 == 0])
+def test_cuda_ssd_bwd_chunk_dstates_match_plain(card, what, b, s, h, p, n, chunk, a_log, dstate):
+    """The tensor-core backward's first two launches alone: the gradient of
+    the state leaving each chunk against ref.ssd_chunked_bwd's plain version
+    ref.ssd_bwd_chunk_dstates (f32 on both sides; the kernel splits C^T dy's
+    f32 operand hi/lo) to 1e-5 relative L2; two calls give the same bits."""
+    args, dy, ds = _ssd_bwd_args(card, torch.bfloat16, b, s, h, p, n, a_log, dstate)
+    x, dtA, dt, B_, C_ = args
+    got = tsk.ssd_bwd_chunk_dstates_cuda(dtA, C_, dy, ds, chunk=chunk)
+    want = tref.ssd_bwd_chunk_dstates(x, dtA, dt, B_, C_, dy, ds, chunk=chunk)
+    assert got.shape == want.shape == (b, s // min(chunk, s), h, n, p)
+    if want.any():
+        assert _rel(got, want) <= 1e-5, _rel(got, want)
+    else:
+        assert not got.any()
+    assert torch.equal(got, tsk.ssd_bwd_chunk_dstates_cuda(dtA, C_, dy, ds, chunk=chunk))
 
 
 @pytest.mark.cuda

@@ -45,7 +45,9 @@ from repro_torch.train.steps import build_hapi_train_step, init_train_state  # n
 # Kernel names of the port's own CUDA kernels, as the profiler reports them
 # (a name matches where it contains one of these).
 PORT_KERNELS = ("flash_fwd", "bwd_dkdv", "bwd_dq", "bwd_dsum", "dequantize", "quantize",
-                "ssd_scan_mma", "ssd_scan_kernel", "ssd_bwd_kernel", "ssd_bwd_reduce")
+                "ssd_scan_mma", "ssd_scan_kernel", "ssd_bwd_kernel", "ssd_bwd_reduce",
+                "ssd_bwd_dchunk", "ssd_bwd_pass", "ssd_bwd_main", "ssd_bwd_state", "ssd_bwd_dbdc",
+                "ssd_bwd_ddta")
 
 
 def port_kernel(name: str):
