@@ -17,9 +17,14 @@ which is what TMA needs.
 Given ``lse=True`` the forward also returns each row's log-sum-exp in base
 2, ``(B, H, S)`` f32. ``flash_attention_bwd_cuda`` wraps the backward kernel
 of ``csrc/flash_attention_bwd.cu`` (which the TPU package does not have: XLA
-differentiates its attention), and ``FlashAttentionFn`` joins the two under
-autograd, saving q, k, v, the output and the log-sum-exp; on CPU tensors it
-runs the plain versions in ``ref``. ``flash_attention_cuda`` itself still
+differentiates its attention): a pre-pass for D = rowsum(dO * O), then a
+dK/dV kernel and a dQ kernel, each the owner of its output, so calls are
+bit-equal. Its route is fixed by (dtype, head dim) before any launch
+(``bwd_tile_config``): bf16 at head dims 64 and 128 on ``wgmma`` with TMA
+tiles in a ring, bf16 at 256 on ``mma.sync``, f32 on the CUDA cores.
+``FlashAttentionFn`` joins the two under autograd, saving q, k, v, the
+output and the log-sum-exp; on CPU tensors it runs the plain versions in
+``ref``. ``flash_attention_cuda`` itself still
 raises on an input that requires grad where autograd is on, rather than
 return a result that autograd cannot differentiate.
 """
@@ -49,6 +54,8 @@ _BWD_SIGNATURES = {
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
         + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
         ctypes.c_int),
+    "flash_attention_bwd_tile": ([ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+                                 ctypes.c_int),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -58,6 +65,15 @@ STAGES = 2               # depth of the K/V ring
 TMA_BOX = 64             # bf16 values in a TMA box's inner extent: 128 bytes, one swizzle row
 SMEM_LIMIT = 232_448     # dynamic shared memory a block may use on an H100
 N_BARRIERS = 3 + 3 * STAGES   # Q full; K full, V full, empty per stage; two turns
+
+# The backward's routes and tiles, as csrc/flash_attention_bwd.cu sets them.
+BWD_ROUTES = ("fma", "mma", "wgmma")   # the C side's route codes 0, 1, 2
+BWD_WGMMA_HEAD_DIMS = (64, 128)        # bf16 on wgmma; bf16 at 256 on mma.sync
+BWD_BLOCK = 128          # keys a dK/dV block owns, query rows a dQ block owns: 64 a consumer
+BWD_TILE = 64            # queries of a dK/dV tile, keys of a dQ tile
+BWD_STAGES = 2           # depth of both rings
+BWD_THREADS = 384        # a producer warpgroup and two consumer warpgroups
+F32_TILE = 32            # the FMA route's tiles, 128 threads
 
 launches = 0
 bwd_launches = 0
@@ -72,6 +88,36 @@ def tile_config(hd: int) -> tuple:
     bn = 64 if hd == 256 else 128
     smem = 2 * hd * (BLOCK_M + 2 * STAGES * bn) + 8 * N_BARRIERS + 1024
     return BLOCK_M, bn, STAGES, smem
+
+
+def bwd_tile_config(hd: int, dtype: torch.dtype) -> tuple:
+    """The backward's route at head dim ``hd`` in ``dtype`` and its two
+    kernels' tiles: (route, dK/dV, dQ), each kernel's (keys or query rows a
+    block owns, rows of a tile it walks, stages of its buffer, threads,
+    dynamic shared bytes). The route is "wgmma" for bf16 at head dims 64 and
+    128: the dK/dV kernel keeps K and V of ``BWD_BLOCK`` keys and a ring of Q,
+    dO, LSE and D tiles of ``BWD_TILE`` queries, the dQ kernel Q and dO of
+    ``BWD_BLOCK`` rows and a ring of K and V tiles of ``BWD_TILE`` keys,
+    both 1 KB-aligned for the swizzle, and the mbarriers. "mma" for bf16 at
+    256 (mma.sync; rows padded by 16 bytes, two buffers; two warps share 16
+    keys of dK and dV). "fma" for float32."""
+    if dtype == torch.bfloat16 and hd in BWD_WGMMA_HEAD_DIMS:
+        bars = 8 * (1 + 2 * BWD_STAGES) + 1024
+        ring = BWD_STAGES * 2 * BWD_TILE * hd * 2
+        dkdv = 2 * BWD_BLOCK * hd * 2 + ring + BWD_STAGES * 2 * BWD_TILE * 4 + bars
+        dq = 2 * BWD_BLOCK * hd * 2 + ring + bars
+        return ("wgmma", (BWD_BLOCK, BWD_TILE, BWD_STAGES, BWD_THREADS, dkdv),
+                (BWD_BLOCK, BWD_TILE, BWD_STAGES, BWD_THREADS, dq))
+    if dtype == torch.bfloat16 and hd in HEAD_DIMS:
+        pitch = hd * 2 + 16
+        return ("mma", (64, 32, 2, 256, (2 * 64 + 4 * 32) * pitch + 4 * 32 * 4),
+                (64, 32, 2, 128, (2 * 64 + 4 * 32) * pitch))
+    if dtype == torch.float32 and hd in F32_HEAD_DIMS:
+        t = F32_TILE
+        smem = (4 * t * (hd + 1) + 2 * t * (t + 1) + 2 * t) * 4
+        return ("fma", (t, t, 1, 128, smem), (t, t, 1, 128, smem))
+    raise ValueError(f"the flash backward takes head_dim {HEAD_DIMS} in bfloat16 and "
+                     f"{F32_HEAD_DIMS} in float32, not {hd} in {dtype}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -164,10 +210,13 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.dtype != q.dtype or dout.dtype != q.dtype or lse.dtype != torch.float32:
         raise TypeError(f"out and dout must have q's dtype {q.dtype} and lse float32, got "
                         f"{out.dtype}, {dout.dtype}, {lse.dtype}")
-    tensors = [t.contiguous() for t in (q, k, v, out, dout, lse)]
-    for name, t in zip(("q", "k", "v", "out", "dout", "lse"), tensors):
+    for name, t in zip(("q", "k", "v", "out", "dout", "lse"), (q, k, v, out, dout, lse)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}, got {t.device}")
+    # Packed, and 16-byte aligned for the wgmma route's TMA: a packed view
+    # that starts off 16 bytes is copied.
+    tensors = [t.contiguous() for t in (q, k, v, out, dout, lse)]
+    tensors = [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
     dq = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, s, hkv, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, s, hkv, hd), dtype=q.dtype, device=q.device)

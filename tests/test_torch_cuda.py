@@ -291,6 +291,61 @@ def test_cuda_flash_bwd_f32_matches_plain(card, b, s, h, hkv, hd, causal, window
     _flash_bwd_check(card, torch.float32, b, s, h, hkv, hd, causal, window, cap)
 
 
+def _flash_bwd_inputs(card, b, s, h, hkv, hd, causal, window, cap, seed=41):
+    q = torch.from_numpy(_normal((b, s, h, hd), seed)).to(card, torch.bfloat16)
+    k = torch.from_numpy(_normal((b, s, hkv, hd), seed + 1)).to(card, torch.bfloat16)
+    v = torch.from_numpy(_normal((b, s, hkv, hd), seed + 2)).to(card, torch.bfloat16)
+    do = torch.from_numpy(_normal((b, s, h, hd), seed + 3)).to(card, torch.bfloat16)
+    out, lse = tfk.flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=cap,
+                                        lse=True)
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,hd,causal,window,cap", FLASH_BWD_CASES)
+def test_cuda_flash_bwd_bf16_calls_are_bit_equal(card, b, s, h, hkv, hd, causal, window, cap):
+    """No atomics: each kernel owns its output, so two calls give the same
+    bits on every route."""
+    q, k, v, out, lse, do = _flash_bwd_inputs(card, b, s, h, hkv, hd, causal, window, cap)
+    mask = dict(causal=causal, window=window, softcap=cap)
+    first = tfk.flash_attention_bwd_cuda(q, k, v, out, lse, do, **mask)
+    second = tfk.flash_attention_bwd_cuda(q, k, v, out, lse, do, **mask)
+    for name, a, c in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, c), name
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_tile_config_matches_the_kernel(card):
+    import ctypes
+    lib = _build.load("flash_attention_bwd", tfk._BWD_SIGNATURES)
+    takes = ([(torch.bfloat16, 1, hd) for hd in tfk.HEAD_DIMS]
+             + [(torch.float32, 0, hd) for hd in tfk.F32_HEAD_DIMS])
+    for dtype, code, hd in takes:
+        got = (ctypes.c_int * 11)()
+        assert lib.flash_attention_bwd_tile(code, hd, got) == 0
+        route, dkdv, dq = tfk.bwd_tile_config(hd, dtype)
+        assert list(got) == [tfk.BWD_ROUTES.index(route), *dkdv, *dq], (dtype, hd)
+    got = (ctypes.c_int * 11)()
+    assert lib.flash_attention_bwd_tile(1, 96, got) == -1
+    assert lib.flash_attention_bwd_tile(0, 48, got) == -1
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_takes_a_view_off_16_bytes(card):
+    """The wgmma route's TMA needs 16-byte aligned tensors: a packed view
+    that starts 2 bytes into its storage gives the bits of an aligned copy."""
+    b, s, h, hkv, hd = 1, 200, 4, 2, 128
+    q, k, v, out, lse, do = _flash_bwd_inputs(card, b, s, h, hkv, hd, True, None, None)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=card)
+    q_off = flat[1:].view(q.shape)
+    q_off.copy_(q)
+    assert q_off.data_ptr() % 16 != 0 and q_off.is_contiguous()
+    want = tfk.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    got = tfk.flash_attention_bwd_cuda(q_off, k, v, out, lse, do)
+    for name, a, c in zip(("dq", "dk", "dv"), got, want):
+        assert torch.equal(a, c), name
+
+
 @pytest.mark.cuda
 def test_cuda_flash_fn_under_autograd_and_remat(card):
     """FlashAttentionFn's gradients on strided views of a fused QKV tensor

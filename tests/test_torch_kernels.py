@@ -308,6 +308,41 @@ def test_flash_tile_config_fits_the_card(hd):
         tfk.tile_config(96)
 
 
+_FLASH_BWD_TAKES = ([("bfloat16", hd) for hd in tfk.HEAD_DIMS]
+                    + [("float32", hd) for hd in tfk.F32_HEAD_DIMS])
+
+
+@pytest.mark.parametrize("dtype,hd", _FLASH_BWD_TAKES)
+def test_flash_bwd_tile_config_fits_the_card(dtype, hd):
+    """The backward's route is fixed by (dtype, head dim): wgmma at bf16 64
+    and 128, mma.sync at bf16 256, FMA for f32. On the wgmma route both
+    kernels own 128 keys or rows (64 for each of two consumer warpgroups,
+    beside a producer warpgroup) and walk tiles of 64 through a ring of at
+    least 2 stages, with TMA boxes of 64 bf16; every kernel's shared memory
+    fits in a block's."""
+    route, dkdv, dq = tfk.bwd_tile_config(hd, _TORCH[dtype])
+    assert route == {"float32": "fma", "bfloat16": "wgmma" if hd < 256 else "mma"}[dtype]
+    assert route in tfk.BWD_ROUTES
+    for block, tile, stages, threads, smem in (dkdv, dq):
+        assert 0 < smem <= tfk.SMEM_LIMIT == 232_448
+        assert block % tile == 0 and stages >= 1 and threads % 128 == 0
+        if route == "wgmma":
+            assert block == 128 and tile % 64 == 0 and stages >= 2 and threads == 3 * 128
+            assert tfk.TMA_BOX * 2 == 128 and hd % tfk.TMA_BOX == 0
+            # K and V (or Q and dO) resident, two tiles a stage, 1 KB of slack.
+            assert smem >= 2 * block * hd * 2 + stages * 2 * tile * hd * 2 + 1024
+        elif route == "mma":
+            assert block == 64 and stages == 2
+        else:
+            assert block == tile == 32 and threads == 128
+    if route == "wgmma":
+        assert dkdv[4] > dq[4]    # the dK/dV ring also holds each tile's LSE and D
+    with pytest.raises(ValueError, match="head_dim"):
+        tfk.bwd_tile_config(96, _TORCH[dtype])
+    with pytest.raises(ValueError, match="head_dim"):
+        tfk.bwd_tile_config(hd, torch.float16)
+
+
 # ---------------------------------------------------------------------------
 # SSD scan
 # ---------------------------------------------------------------------------
