@@ -38,6 +38,17 @@ yardstick), then drives the port's three paths at full width:
   planner's wire bytes a step (86,507,520 and 34,603,008), exact launch
   counts and the frozen prefix unchanged bit for bit; each step's time is
   split into extract, tune (forward and backward) and AdamW.
+* The paper's own workload (``repro_torch.models.vision``): AlexNet, ResNet18,
+  VGG11 and the ViT encoder at full width (224 x 224 x 3, 1,000 classes)
+  agree card vs CPU at their Alg. 1 split and at the last boundary; each is
+  planned (``profile_layered``, Alg. 1 under ``compress_transfer`` with a
+  train batch of 1,000, Eq. 4 against the card's memory), and one object of
+  1,000 images from the port's ``ObjectStore`` goes through
+  ``make_vision_executor`` on the card: the prefix over COS-batch
+  microbatches (flash attention in each ViT block) and the boundary
+  int8-quantized, with exact launches and the measured wire bytes held to
+  the int8 formula; per-layer times of AlexNet and ResNet18 at the
+  COS batch.
 
 Weights are random, from seeded ``torch.Generator``s. Exits non-zero on any
 failure, and without a GPU. It prints each phase's wall time. Its last lines
@@ -67,8 +78,13 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.config import HW, HapiConfig, RunConfig, ShapeConfig, TrainConfig  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.core.batch_adapt import AdaptRequest, adapt_batches  # noqa: E402
+from repro_torch.core.profiler import profile_layered  # noqa: E402
+from repro_torch.core.splitter import choose_split  # noqa: E402
 from repro_torch.core.tier_split import (  # noqa: E402
-    make_extract_fn, make_tune_loss_fn, plan_tiers, wire_bytes)
+    largest_divisor_leq, make_extract_fn, make_tune_loss_fn, make_vision_executor, plan_tiers,
+    wire_bytes)
+from repro_torch.cos.objectstore import ObjectStore  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import int8_transfer, ssd_scan  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
@@ -81,6 +97,7 @@ from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda  # noq
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.train import run_training  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.models.vision import PAPER_MODELS, EncoderBlock  # noqa: E402
 from repro_torch.train import steps as train_steps  # noqa: E402
 from repro_torch.train.steps import (  # noqa: E402
     build_decode_step, build_hapi_train_step, build_prefill_step, init_train_state)
@@ -202,6 +219,18 @@ SERVE_LAUNCHES = {
                          "decode_attention": 40 * (SERVE_PROMPT + SERVE_TOKENS)},
     "mamba2-1.3b": {"ssd_scan": 48},
 }
+# The paper's vision workload: one object of 1,000 images (the paper's object
+# size), each model's Alg. 1 split under compress_transfer at a train batch of
+# 1,000 (HapiConfig's other defaults, as tests/test_torch_planner.py holds the
+# JAX package to), and the COS batch of Eq. 4 against the card's memory.
+VISION_OBJECT = 1000
+VISION_TRAIN_BATCH = 1000
+VISION_REQUESTS = 2
+# Card vs CPU of apply_range on 2 images, relative L2 of a boundary: both sides
+# in float32 with cuDNN's TF32 off, so only the order of the convolutions' and
+# products' sums differs (about 1e-6); a wrong padding or layout gives near 1.
+VISION_TOL = 1e-4
+VISION_FIG3 = ("alexnet", "resnet18")   # per-layer times, the paper's Fig. 3
 
 
 def log(msg: str) -> None:
@@ -380,6 +409,7 @@ FLASH_CASES = [
     (4, 300, 4, 2, 16, True, 16, 50.0, torch.float32, F32_TOL),         # gemma2 smoke, local
     (2, 257, 8, 2, 32, True, None, None, torch.float32, F32_TOL),
     (1, 190, 4, 4, 32, False, 30, None, torch.float32, F32_TOL),
+    (200, 196, 6, 6, 64, False, None, None, torch.float32, F32_TOL),   # a ViT block, COS batch
 ]
 
 
@@ -1313,6 +1343,165 @@ def train_defaults() -> None:
     free()
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the paper's vision workload
+# ---------------------------------------------------------------------------
+def vision_plan(vm, name: str):
+    """profile_layered -> Alg. 1 (compress_transfer, train batch 1,000) ->
+    Eq. 4 against the card's memory -> (profile, decision, COS batch)."""
+    hapi = HapiConfig(compress_transfer=True)
+    prof = profile_layered(vm)
+    dec = choose_split(prof, hapi, VISION_TRAIN_BATCH)
+    split = dec.split_index
+    check(0 < split <= vm.freeze_index, f"{name}: split {split}")
+    req = AdaptRequest(req_id=0, mem_per_sample=prof.act_peak_bytes[split] * (1 + prof.headroom),
+                       mem_model=prof.prefix_param_bytes[split],
+                       b_max=min(VISION_OBJECT, hapi.cos_batch))
+    res = adapt_batches([req], hapi.cos_hbm_budget, b_min=hapi.cos_batch_min)
+    cos_batch = largest_divisor_leq(VISION_OBJECT, res.assignments[0].batch)
+    return prof, dec, cos_batch
+
+
+def vision_card_vs_cpu(name: str, vm, split: int) -> None:
+    cpu = PAPER_MODELS[name](device="cpu", generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(31).standard_normal(
+        (2, 224, 224, 3), dtype=np.float32))
+    for hi in (split, len(vm.layer_names)):
+        with torch.no_grad():
+            got = vm.apply_range(x.cuda(), 0, hi)
+            want = cpu.apply_range(x, 0, hi)
+        err = rel_err(got, want)
+        log(f"vision {name} card vs CPU at boundary {hi} {tuple(got.shape)}: relative L2 "
+            f"{err:.3g} (tol {VISION_TOL:g}), max abs {float((got.cpu() - want).abs().max()):.3g}")
+        check(bool(torch.isfinite(got).all()) and err <= VISION_TOL,
+              f"{name}: card and CPU disagree at boundary {hi}")
+    del cpu
+
+
+def vision_layer_ms(name: str, vm, images: np.ndarray, cos_batch: int, smi: str) -> None:
+    """Each layer's time on a COS-batch microbatch (the paper's Fig. 3), from
+    CUDA events around 5 eager calls."""
+    x = torch.from_numpy(images[:cos_batch]).cuda()
+    parts = []
+    with torch.no_grad():
+        for i, lname in enumerate(vm.layer_names):
+            ms = time_ms(lambda: vm.apply_range(x, i, i + 1), 5)
+            parts.append(f"{lname} {ms:.4f}")
+            x = vm.apply_range(x, i, i + 1)
+    log(f"vision {name} per-layer ms at COS batch {cos_batch} ({smi}): "
+        + ", ".join(parts))
+
+
+def vision_kernel_ms(name: str, vm, images: np.ndarray, split: int, cos_batch: int,
+                     smi: str) -> None:
+    """The kernels at the executor's shapes: quantize on one COS-batch
+    microbatch's float32 boundary, held bit for bit to the plain version and
+    timed by CUDA-graph replay beside its bound; for the ViT, flash attention
+    at one block's shape (f32, non-causal) beside SDPA on the same inputs;
+    and the microbatch's copies between host and card, by CUDA events."""
+    with torch.no_grad():
+        mb = images[:cos_batch]
+        x = vm.apply_range(torch.from_numpy(mb).cuda(), 0, split).contiguous()
+        route = int8_exact(x, f"vision {name} {tuple(x.shape)}")
+        check(route == "vector", f"vision {name}: quantize took the {route} route")
+        n = x.numel()
+        scales = n // math.gcd(x.shape[-1], 128)
+        qb, qby = bound(n * (4 + 1) + scales * 4, 5 * n, HW.peak_flops_f32)
+        ms = device_ms(lambda: quantize_int8_cuda(x), 20)
+        log(f"vision {name}: quantize_int8 on {tuple(x.shape)} float32 ({route} route, q, "
+            f"scales and dequantize bit-exact with the plain versions): {ms:.4f} ms, bound "
+            f"{qb:.4f} ms ({qby}); {smi}")
+        q, _ = quantize_int8_cuda(x)
+        h2d = time_ms(lambda: torch.from_numpy(mb).cuda(), 5)
+        d2h = time_ms(lambda: q.cpu(), 5)
+        log(f"vision {name}: host to card {mb.nbytes} bytes (pageable numpy) {h2d:.4f} ms, "
+            f"card to host {q.numel()} int8 codes {d2h:.4f} ms, a microbatch of {cos_batch}; "
+            f"{smi}")
+        first = next((i for i, layer in enumerate(vm.layers) if isinstance(layer, EncoderBlock)),
+                     None)
+        if first is None:
+            return
+        block = vm.layers[first]
+        b, s, d = vm.apply_range(torch.from_numpy(mb).cuda(), 0, first).shape
+        hd = d // block.heads
+        q, k, v = (randn((b, s, block.heads, hd), torch.float32, seed=40 + i) for i in range(3))
+        fb, fby = bound(4 * b * s * d * 4, 4 * hd * b * block.heads * s * s, HW.peak_flops_f32)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        ms = device_ms(lambda: flash_attention_cuda(q, k, v, causal=False), 20)
+        lib = device_ms(lambda: sdpa(qt, kt, vt), 20)
+        log(f"vision {name}: flash_attention on ({b}, {s}, {block.heads}, {hd}) float32 "
+            f"non-causal: {ms:.4f} ms, bound {fb:.4f} ms ({fby}), scaled_dot_product_attention "
+            f"{lib:.4f} ms; {smi}")
+
+
+def vision(smi: str) -> dict:
+    """Each paper model at full width: card vs CPU, the plan, then requests of
+    one 1,000-image object through make_vision_executor on the card with the
+    counts read around each; returns the launches of each kernel."""
+    images = np.random.default_rng(30).standard_normal(
+        (VISION_OBJECT, 224, 224, 3), dtype=np.float32)
+    store = ObjectStore()
+    (oname,) = store.put_dataset("images", {"x": images}, object_size=VISION_OBJECT)
+    total = dict.fromkeys(KERNELS, 0)
+    for name, build in PAPER_MODELS.items():
+        free()
+        vm = build(device="cuda", generator=torch.Generator().manual_seed(0))
+        prof, dec, cos_batch = vision_plan(vm, name)
+        split = dec.split_index
+        log(f"vision {name}: {len(vm.layer_names)} layers, freeze {vm.freeze_index}, "
+            f"{prof.model_param_bytes:.0f} weight bytes; split {split} "
+            f"{tuple(vm.layer_names[:split][-1:])}, cos_batch {cos_batch}; {dec.reason}")
+        vision_card_vs_cpu(name, vm, split)
+
+        obj, _ = store.read(oname, 0.0)
+        check(obj.n_samples == VISION_OBJECT and np.array_equal(obj.payload["x"], images),
+              "the object store's read")
+        execute = make_vision_executor(vm, compress=True)
+        n_mb = -(-VISION_OBJECT // cos_batch)
+        blocks = sum(isinstance(layer, EncoderBlock) for layer in list(vm.layers)[:split])
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(quantize_int8=n_mb, flash_attention=blocks * n_mb)
+        ops.reset_launch_counts()
+        for r in range(VISION_REQUESTS):
+            before = ops.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q, scales = execute(obj.payload, split, cos_batch)
+            wall = time.perf_counter() - t0
+            rose = {k: v - before[k] for k, v in ops.launch_counts().items()}
+            d = q.shape[-1]
+            rows = q.size // d
+            want_wire = rows * d + rows * (d // math.gcd(d, 128)) * 4
+            wire = q.nbytes + scales.nbytes
+            log(f"vision {name} request {r}: {VISION_OBJECT} images in {1e3 * wall:.1f} ms "
+                f"({VISION_OBJECT / wall:.1f} images/s; {smi}), boundary {q.shape} int8, "
+                f"wire {wire} bytes measured, int8 formula {want_wire}, Alg. 1 predicted "
+                f"{dec.wire_bytes_per_iter:.0f}; launches {rose}")
+            check(rose == want, f"{name}: launches {rose}, expected {want}")
+            check(wire == want_wire, f"{name}: wire {wire} != {want_wire}")
+        for k, v in ops.launch_counts().items():
+            total[k] += v
+        # The wire against the float32 boundary of the same object.
+        acts = make_vision_executor(vm, compress=False)(obj.payload, split, cos_batch)
+        deq = dequantize_int8_cuda(torch.from_numpy(q).cuda(), torch.from_numpy(scales).cuda(),
+                                   torch.float32).cpu().numpy()
+        step = np.repeat(scales, d // scales.shape[-1], axis=-1)
+        err = np.abs(deq - acts)
+        log(f"vision {name}: dequantized wire vs float32 boundary max abs {float(err.max()):.3g}, "
+            f"at most {float((err / step).max()):.4f} of a code step (half a step plus the "
+            "card's rounding allowed)")
+        check(bool(np.isfinite(acts).all()) and bool((err <= 0.5 * step * (1 + 1e-5)
+                                                       + 1e-6 * np.abs(acts)).all()),
+              f"{name}: the int8 wire is off the float32 boundary")
+        vision_kernel_ms(name, vm, images, split, cos_batch, smi)
+        if name in VISION_FIG3:
+            vision_layer_ms(name, vm, images, cos_batch, smi)
+        del vm, execute, acts, deq, q, scales
+    free()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -1345,10 +1534,11 @@ def main() -> int:
     trained = phase("training", train_slice)
     trained_ssm = phase("training_ssm", lambda: train_slice(
         SSM_ARCH, get_config(SSM_ARCH).n_layers, 36, SSM_WIRE_BYTES, SSM_TRAIN_LAUNCHES))
+    seen = phase("vision", lambda: vision(smi))
     launches = {name: pushdown[name] + served[name] + trained[name] + trained_ssm[name]
-                for name in KERNELS}
+                + seen[name] for name in KERNELS}
     log(f"launches: pushdown {pushdown}, serving {served}, training {trained}, "
-        f"SSM training {trained_ssm}")
+        f"SSM training {trained_ssm}, vision {seen}")
     log(f"phase wall seconds {phases}; total {time.perf_counter() - t_start:.1f} s")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main paths")

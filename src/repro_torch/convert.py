@@ -28,6 +28,15 @@ write it), and ``params_from_jax`` also takes such a tree.
 ``train_state_from_jax`` and ``train_state_to_jax`` carry a whole train
 state, ``TrainState(frozen, trainable, OptState(m, v, step))`` of the JAX
 package, across: the moments are trees of the trainable part's structure.
+
+``vision_params_from_jax`` and ``vision_params_to_jax`` carry the weights of
+a paper vision model (``models/vision.py``): the reference's list of
+per-layer dicts, one per layer, against the port's ``layers[i]``. The keys
+are the same (``w``, ``b``; a ResNet block's ``c1``, ``b1``, ``c2``, ``b2``,
+``down``; BatchNorm's ``scale``, ``bias`` and the ``mean``, ``var``
+buffers; the ViT's ``ln1s`` ... ``w2``, ``pos``). Conv kernels go from HWIO
+to OIHW, and the ViT's ``wq``, ``wk``, ``wv`` (d, heads, hd) and ``wo``
+(heads, hd, d) merge their head axes. Both ways are exact.
 """
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.transformer import build_lm
+from repro_torch.models.vision import EncoderBlock
 from repro_torch.optim.adamw import OptState
 from repro_torch.train.steps import TrainState
 
@@ -156,3 +166,39 @@ def train_state_to_jax(state) -> Tuple[Dict[str, Any], Dict[str, Any], Tuple]:
     frozen, trainable, opt = state
     return (params_to_jax(frozen.state_dict()), params_to_jax(trainable.state_dict()),
             (params_to_jax(opt.m), params_to_jax(opt.v), np.int32(int(opt.step))))
+
+
+def vision_params_from_jax(vm, params_list) -> None:
+    """Load the reference's per-layer parameter dicts (numpy or JAX arrays)
+    into the port's ``VisionModel`` ``vm``, in place, on its device."""
+    if len(params_list) != len(vm.layers):
+        raise ValueError(f"{len(params_list)} parameter dicts for {len(vm.layers)} layers")
+    for layer, p in zip(vm.layers, params_list):
+        target = layer.state_dict()
+        sd = {}
+        for key, a in _flatten(p).items():
+            a = np.asarray(a, dtype=np.float32)
+            if a.ndim == 4:                       # HWIO -> OIHW
+                a = a.transpose(3, 2, 0, 1)
+            elif a.ndim == 3:                     # the ViT's per-head projections
+                a = a.reshape(target[key].shape)
+            sd[key] = torch.from_numpy(np.array(a, copy=True))
+        layer.load_state_dict(sd)
+
+
+def vision_params_to_jax(vm) -> list:
+    """The reference's list of per-layer parameter dicts (numpy, float32) of
+    the port's ``VisionModel`` ``vm``."""
+    out = []
+    for layer in vm.layers:
+        flat = {}
+        for key, t in layer.state_dict().items():
+            a = _to_numpy(t)
+            if a.ndim == 4:                       # OIHW -> HWIO
+                a = np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+            elif isinstance(layer, EncoderBlock) and key in ("wq", "wk", "wv", "wo"):
+                h, d = layer.heads, a.shape[0]
+                a = a.reshape((d, h, d // h) if key != "wo" else (h, d // h, d))
+            flat[key] = a
+        out.append(_nest(flat))
+    return out

@@ -1,15 +1,28 @@
-"""Per-boundary profiling of the LM families (paper §5.3).
+"""Per-boundary profiling (paper §5.3).
 
-Counterpart of ``repro/core/profiler.py`` for ``LayerProfile`` and
-``profile_lm``: sizes are static and FLOPs analytic, so profiling allocates
-nothing. Every memory estimate is inflated by ``headroom`` (the paper's
-over-estimation discipline), so batch adaptation never under-provisions.
-Itemsizes come from torch dtypes.
+Counterpart of ``repro/core/profiler.py``. Two entry points:
+  * ``profile_lm``      — block-boundary profile of the LM families: sizes
+    are static and FLOPs analytic.
+  * ``profile_layered`` — exact per-layer profile of the paper's vision
+    models (``models/vision.py``): every boundary's shape from one
+    synthetic sample on the ``meta`` device (the reference uses
+    ``jax.eval_shape``), so profiling allocates nothing.
+Every memory estimate is inflated by ``headroom`` (the paper's
+over-estimation discipline), so batch adaptation never under-provisions;
+``calibrate_profile`` folds one measured run into it and
+``extrapolation_error`` is the paper's error of the estimate. Itemsizes come
+from torch dtypes.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from dataclasses import dataclass
 from typing import List, Optional
+
+import torch
+from torch import nn
+from torch.func import functional_call
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.module import dtype_of
@@ -30,6 +43,25 @@ class LayerProfile:
     model_param_bytes: float
     freeze_index: int
     headroom: float = 0.08
+
+    @property
+    def total_flops(self) -> float:
+        return self.cum_flops[-1]
+
+    def memory_estimate(self, boundary: int, batch: int) -> float:
+        """OOM-safe estimate of running the prefix [0, boundary) with
+        ``batch`` samples (paper §5.3: model + batch-proportional part,
+        over-estimated by headroom)."""
+        m = self.prefix_param_bytes[boundary] + batch * self.act_peak_bytes[boundary]
+        return m * (1.0 + self.headroom)
+
+    def suffix_memory_estimate(self, boundary: int, batch: int, train: bool) -> float:
+        act = self.act_peak_bytes[-1] - (
+            self.act_peak_bytes[boundary] - self.out_bytes[boundary]
+        )
+        params = self.model_param_bytes - self.prefix_param_bytes[boundary]
+        mult = 3.0 if train else 1.0      # grads + optimizer residency
+        return (params * mult + batch * act) * (1.0 + self.headroom)
 
 
 # ---------------------------------------------------------------------------
@@ -150,3 +182,100 @@ def profile_lm(cfg: ModelConfig, seq_len: int, headroom: float = 0.08) -> LayerP
         freeze_index=cfg.freeze_index,
         headroom=headroom,
     )
+
+
+# ---------------------------------------------------------------------------
+# Vision-model profile (exact, from meta tensors: the paper's profiling run)
+# ---------------------------------------------------------------------------
+def _state(module: nn.Module):
+    """Parameters and buffers: what the reference's per-layer dict holds."""
+    return [*module.parameters(), *module.buffers()]
+
+
+def tree_bytes(module: nn.Module) -> int:
+    return sum(t.numel() * t.element_size() for t in _state(module))
+
+
+def profile_layered(vm, headroom: float = 0.08) -> LayerProfile:
+    """Exact per-layer profile of a ``VisionModel`` with a single synthetic
+    sample (paper §5.3: 'a single data sample is sufficient'). Each layer
+    runs on ``meta`` copies of its weights, wherever they live."""
+    x = torch.empty((1,) + tuple(vm.input_shape), device="meta")
+    out_bytes = [float(math.prod(vm.input_shape)) * 4]
+    act_peak = [out_bytes[0]]
+    cum_flops = [0.0]
+    prefix_pb = [0.0]
+    running_pb = 0.0
+    running_flops = 0.0
+    with torch.no_grad():
+        for layer in vm.layers:
+            meta = {k: torch.empty_like(t, device="meta")
+                    for k, t in (*layer.named_parameters(), *layer.named_buffers())}
+            nxt = functional_call(layer, meta, (x,))
+            layer_bytes = float(nxt.numel() * nxt.element_size())
+            running_pb += tree_bytes(layer)
+            running_flops += _layer_flops_estimate(layer, x, nxt)
+            out_bytes.append(layer_bytes)
+            cur = float(x.numel() * 4 + layer_bytes)
+            act_peak.append(max(act_peak[-1], cur))  # prefix working-set peak
+            cum_flops.append(running_flops)
+            prefix_pb.append(running_pb)
+            x = nxt
+
+    return LayerProfile(
+        name=vm.name,
+        n_boundaries=len(vm.layer_names) + 1,
+        input_bytes=out_bytes[0],
+        out_bytes=out_bytes,
+        cum_flops=cum_flops,
+        act_peak_bytes=act_peak,
+        prefix_param_bytes=prefix_pb,
+        model_param_bytes=tree_bytes(vm),
+        freeze_index=vm.freeze_index,
+        headroom=headroom,
+    )
+
+
+def calibrate_profile(profile: LayerProfile, boundary: int,
+                      measured_bytes: float, batch: int) -> LayerProfile:
+    """The paper's hybrid calibration (§5.3): compare the static estimate
+    against one measured run; any residual 'is assumed to grow
+    proportionally with the batch size' and is folded into the per-sample
+    activation figures. Always rounds UP (the over-estimation discipline).
+    """
+    est = profile.memory_estimate(boundary, batch)
+    if measured_bytes <= est:
+        return profile  # already safely over-estimating
+    residual_per_sample = (measured_bytes - profile.prefix_param_bytes[boundary]) / batch
+    scale = residual_per_sample / max(profile.act_peak_bytes[boundary], 1.0)
+    return dataclasses.replace(
+        profile,
+        act_peak_bytes=[a * max(scale, 1.0) for a in profile.act_peak_bytes],
+    )
+
+
+def extrapolation_error(profile: LayerProfile, boundary: int,
+                        measured_bytes: float, batch: int) -> float:
+    """Paper §5.3's reported metric: % error of the batch-extrapolated
+    estimate vs a measured run (they report 0.0005%–11.7%)."""
+    est = profile.memory_estimate(boundary, batch) / (1 + profile.headroom)
+    return 100.0 * abs(est - measured_bytes) / max(measured_bytes, 1.0)
+
+
+def _layer_flops_estimate(layer: nn.Module, x: torch.Tensor, out: torch.Tensor) -> float:
+    """The reference's estimate, quirks included: a layer without weights
+    counts its output's elements; one whose own ``w`` is 4-D (a conv) counts
+    2 x the output's spatial positions x ``w``'s size; any other counts
+    2 x the size of every weight and buffer (BatchNorm's statistics too) x
+    the input's positions (its dims between the batch and the last: the
+    patch embedding's 224 x 224, the ViT head's 196 tokens)."""
+    state = _state(layer)
+    if not state:
+        return float(out.numel())  # elementwise
+    w = getattr(layer, "w", None)
+    if w is not None and w.dim() == 4:  # conv
+        spatial = out.shape[1] * out.shape[2]
+        return float(2 * spatial * w.numel())
+    total = sum(2 * t.numel() for t in state)
+    seq = math.prod(x.shape[1:-1]) if x.dim() > 2 else 1
+    return float(total * seq)

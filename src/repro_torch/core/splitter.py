@@ -1,7 +1,7 @@
 """The splitting algorithm (paper §5.4, Algorithm 1).
 
-Counterpart of ``repro/core/splitter.py`` for ``candidate_boundaries`` and
-``choose_split``.
+Counterpart of ``repro/core/splitter.py``: ``candidate_boundaries``,
+``choose_split`` and ``choose_split_cost_optimal``.
 
 Phase 1 — candidate selection: boundaries whose per-sample output is no
 larger than the application input, and not after the freeze index.
@@ -13,6 +13,10 @@ qualifies (Alg. 1 line 13).
 With ``compress_transfer`` the wire bytes are scaled by the port's own
 :data:`repro_torch.kernels.ops.INT8_WIRE_RATIO` (0.515625 for bf16 with
 per-128 f32 scales), the ratio of the bytes ``extract`` emits.
+
+Beyond the paper, as in the reference: ``choose_split_cost_optimal`` takes
+the argmin of the roofline-corrected §4 cost model (``core/cost_model.py``)
+over every boundary up to the freeze index, 0 (no pushdown) included.
 """
 from __future__ import annotations
 
@@ -74,4 +78,48 @@ def choose_split(
         wire_bytes_per_iter=profile.out_bytes[winner] * train_batch * compress,
         candidates=cands,
         reason=reason,
+    )
+
+
+def choose_split_cost_optimal(
+    profile: LayerProfile,
+    hapi: HapiConfig,
+    train_batch: int,
+    *,
+    cos_flops: float,
+    client_flops: float,
+    n_tenants: int = 1,
+    dataset_size: Optional[int] = None,
+    freeze_index: Optional[int] = None,
+    measured_bandwidth: Optional[float] = None,
+) -> SplitDecision:
+    """Argmin of the roofline-corrected §4 cost model over all boundaries
+    (including 0 = no pushdown), at the HBM rate of the port's ``HW``.
+    ``measured_bandwidth`` feeds the model a live bandwidth estimate (see
+    :func:`repro_torch.core.cost_model.effective_bandwidth`) instead of the
+    provisioned rate."""
+    from repro_torch.core.cost_model import roofline_epoch_time
+
+    fz = profile.freeze_index if freeze_index is None else freeze_index
+    compress = INT8_WIRE_RATIO if hapi.compress_transfer else 1.0
+    d = dataset_size or train_batch * 32
+
+    best_i, best_t = 0, float("inf")
+    for i in range(0, fz + 1):
+        t = roofline_epoch_time(
+            profile, i, d, train_batch,
+            bandwidth=hapi.network_bandwidth,
+            cos_flops=cos_flops, client_flops=client_flops,
+            n_tenants=n_tenants, compress=compress,
+            measured_bandwidth=measured_bandwidth,
+        ).total
+        if t < best_t - 1e-12:
+            best_i, best_t = i, t
+
+    return SplitDecision(
+        split_index=best_i,
+        bytes_per_sample=profile.out_bytes[best_i],
+        wire_bytes_per_iter=profile.out_bytes[best_i] * train_batch * compress,
+        candidates=list(range(0, fz + 1)),
+        reason=f"cost-optimal: epoch time {best_t:.3f}s",
     )

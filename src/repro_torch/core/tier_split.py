@@ -10,12 +10,20 @@ decisions (split index, COS batch size, compression) into two functions:
     plan compresses (beyond-paper).
   * ``tune_loss(trainable, acts, batch)`` — the training side: the
     remaining blocks and the head, at the *training batch size*.
+
+``make_vision_executor`` is the storage tier's executor of a paper vision
+model (``models/vision.py``), in the form the COS server registers
+(``HapiServer.register_executor`` in the reference): an object's images in
+microbatches of the COS batch through the prefix on the card, each
+microbatch's boundary int8-quantized there when the request compresses, and
+the result back on the host as numpy.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.config import HapiConfig, ModelConfig, ShapeConfig
@@ -118,3 +126,31 @@ def wire_bytes(acts: Acts) -> int:
     """Actual bytes this activation payload puts on the bottleneck link."""
     leaves = acts if isinstance(acts, tuple) else (acts,)
     return sum(x.numel() * x.element_size() for x in leaves)
+
+
+def make_vision_executor(vm, *, compress: bool, device="cuda") -> Callable:
+    """``fn(payload, split, cos_batch)`` for ``register_executor``: the
+    prefix [0, split) of ``vm`` (which must live on ``device``) over
+    ``payload["x"]`` (numpy NHWC float32) in microbatches of ``cos_batch``
+    images, without gradients. Returns numpy on the host: the float32
+    boundary activations, or with ``compress`` the int8 codes and float32
+    scales of ``kernels/ops.quantize_int8`` on each microbatch's boundary.
+    Each image's result depends on that image alone, not on ``cos_batch``.
+    The server counts int8 leaves as the measured wire."""
+    dev = torch.device(device)
+
+    def execute(payload: dict, split: int, cos_batch: int):
+        x = payload["x"]
+        outs = []
+        with torch.no_grad():
+            for lo in range(0, len(x), cos_batch):
+                mb = torch.from_numpy(np.ascontiguousarray(x[lo:lo + cos_batch],
+                                                          dtype=np.float32)).to(dev)
+                acts = vm.apply_range(mb, 0, split).contiguous()
+                outs.append(ops.quantize_int8(acts) if compress else acts)
+        if compress:
+            return (torch.cat([q for q, _ in outs]).cpu().numpy(),
+                    torch.cat([s for _, s in outs]).cpu().numpy())
+        return torch.cat(outs).cpu().numpy()
+
+    return execute

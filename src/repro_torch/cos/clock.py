@@ -4,7 +4,7 @@ Counterpart of the two classes of ``repro/cos/clock.py`` that the object
 store uses. They book work on a virtual clock and account busy time; the
 JAX package's ``Simulator`` (the fleet's shared event trace, with its
 ``obs/`` tracer and metrics) and the accelerators wait for the simulator
-slice (ROADMAP Queue 1 item 6), so these record no trace.
+slice (ROADMAP Queue 1 item 4), so these record no trace.
 """
 from __future__ import annotations
 

@@ -6,7 +6,7 @@ equal-sized chunks (paper: 1000 images per object, chosen to avoid small
 requests). A read goes to the least busy replica's storage node, whose
 ``Link`` books it on the virtual clock. Joining a fleet's simulation
 (``attach_sim``), a shared network fabric (``use_fabric``) and re-replication
-wait for the simulator slice (ROADMAP Queue 1 item 6): until then no read
+wait for the simulator slice (ROADMAP Queue 1 item 4): until then no read
 shares a link, and ``read_batch`` always leaves the reads to ``read``.
 """
 from __future__ import annotations

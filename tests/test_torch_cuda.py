@@ -20,6 +20,8 @@ from repro_torch.kernels.int8_cases import INT8_ADVERSARIAL, int8_adversarial
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd_scan as tsk
+from repro_torch.core.tier_split import make_vision_executor
+from repro_torch.models import vision as tv
 
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -135,6 +137,7 @@ def test_cuda_flash_f32_small_head_dims(card, hd, b, s, h, hkv, causal, window, 
     (2, 130, 4, 4, 64, False, None, None),
     (1, 190, 4, 2, 128, False, 30, None),
     (1, 1, 2, 2, 64, True, None, None),
+    (2, 196, 6, 6, 64, False, None, None),        # a ViT encoder block's attention
 ])
 def test_cuda_flash_matches_plain(card, dtype, b, s, h, hkv, hd, causal, window, cap):
     dt = _TORCH[dtype]
@@ -787,3 +790,44 @@ def test_cuda_serving_kernels_count_launches_and_refuse_bad_input(card):
         tops.ssd_scan(x[:, :30], dts[:, :30], dts[:, :30], bc[:, :30], bc[:, :30], chunk=16)
     with pytest.raises(ValueError, match="length"):
         tops.decode_attention(q, kv, kv, 33)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 27, 27, 64), (3, 14, 14, 192), (2, 196, 384),
+                                   (5, 25088)])
+def test_cuda_int8_vision_boundaries_f32_bit_exact(card, shape):
+    """The vision executor's boundaries: float32, tiles of 64 (AlexNet's split
+    3) and 128."""
+    x = torch.from_numpy(_normal(shape, 61, 2.0)).to(card)
+    q, s = tik.quantize_int8_cuda(x)
+    qe, se = tref.quantize_int8(x)
+    assert s.shape[-1] == shape[-1] // math.gcd(shape[-1], 128)
+    assert torch.equal(q, qe) and torch.equal(s, se)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compress", [False, True])
+@pytest.mark.parametrize("name,split", [("alexnet", 3), ("transformer", 11)])
+def test_cuda_vision_executor_matches_the_cpu_port(card, name, split, compress):
+    """The executor on the card against the port's plain path on the CPU, the
+    same seeded weights: float32 acts to 1e-4 relative L2 (cuDNN's TF32 off;
+    only the sums' order differs), int8 codes within one step. 5 images in
+    microbatches of 2: 3 quantize launches, and 10 flash launches each for
+    the ViT's blocks before split 11."""
+    gpu = tv.PAPER_MODELS[name](device="cuda", generator=torch.Generator().manual_seed(0))
+    cpu = tv.PAPER_MODELS[name](device="cpu", generator=torch.Generator().manual_seed(0))
+    x = _normal((5, 224, 224, 3), 51)
+    tops.reset_launch_counts()
+    got = make_vision_executor(gpu, compress=compress)({"x": x}, split, 2)
+    counts = tops.launch_counts()
+    want = make_vision_executor(cpu, compress=compress, device="cpu")({"x": x}, split, 2)
+    assert counts["quantize_int8"] == (3 if compress else 0)
+    assert counts["flash_attention"] == (30 if name == "transformer" else 0)
+    if compress:
+        (q, s), (qe, se) = got, want
+        assert q.dtype == np.int8 and s.dtype == np.float32 and q.shape == qe.shape
+        assert np.abs(q.astype(np.int32) - qe.astype(np.int32)).max() <= 1
+        np.testing.assert_allclose(s, se, rtol=1e-4, atol=0)
+    else:
+        assert got.dtype == np.float32 and got.shape == want.shape
+        assert np.linalg.norm(got - want) <= 1e-4 * np.linalg.norm(want)
