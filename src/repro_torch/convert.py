@@ -14,8 +14,19 @@ stacked over a leading block axis (``repro/models/module.py``
     blocks/sub{j}/attn/k_norm/scale [i]        blocks.{i}.sub{j}.attn.k_norm.scale
     blocks/sub{j}/ln_ffn/scale [i]             blocks.{i}.sub{j}.ln_ffn.scale
     blocks/sub{j}/mlp/{w_gate,w_up,w_down} [i] blocks.{i}.sub{j}.mlp.{w_gate,w_up,w_down}
+    blocks/sub{j}/moe/router [i]               blocks.{i}.sub{j}.moe.router
+    blocks/sub{j}/moe/{w_gate,w_up,w_down} [i] blocks.{i}.sub{j}.moe.{w_gate,w_up,w_down}
+    blocks/sub{j}/mamba/{name} [i]             blocks.{i}.sub{j}.mamba.{name}
     final_norm/scale                           final_norm.scale
     unembed                                    unembed
+
+where a mamba ``{name}`` is one of ``w_z``, ``w_x``, ``w_B``, ``w_C``,
+``w_dt``, ``conv_x``, ``conv_x_b``, ``conv_B``, ``conv_B_b``, ``conv_C``,
+``conv_C_b``, ``A_log``, ``D``, ``dt_bias``, ``norm_scale``, ``w_out``. A
+MoE's experts stack as (n_blocks, E, d, f) in the JAX tree (``w_down``
+(n_blocks, E, f, d)) and as (E, d, f) in a block of the port; its router,
+(n_blocks, d, E) there, is f32 in a bf16 model on both sides, as are
+mamba's ``A_log``, ``D`` and ``dt_bias``, and goes across exactly.
 
 Shapes are unchanged, and so are the words a name-based weight-decay mask
 reads ("norm", "scale", "bias", "ln"; ``repro/optim/adamw.py``

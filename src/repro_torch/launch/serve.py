@@ -3,9 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral-nemo-12b --full \\
         --prompt-len 512 --tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --device cpu
 
 Counterpart of the ``--arch`` path of ``repro/launch/serve.py``, for the LM
-families the port has (dense and ssm). The loop is the JAX launcher's: the
+families the port has: dense (mistral-nemo-12b, gemma2-9b, qwen3-32b,
+qwen1.5-110b), moe (moonshot-v1-16b-a3b, grok-1-314b), ssm (mamba2-1.3b) and
+hybrid (jamba-v0.1-52b). The loop (``generate``) is the JAX launcher's: the
 prompt is prefilled and that cache is discarded; a fixed-size cache of
 ``prompt_len + new_tokens`` positions is refilled by teacher-forcing the
 prompt one token at a time; the first new token is the argmax of the last
@@ -27,6 +30,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models.api import build_model
+from repro_torch.models.transformer import LM
 from repro_torch.train.steps import build_decode_step, build_prefill_step
 
 
@@ -37,11 +41,7 @@ def _sync(device: torch.device) -> None:
 
 def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, new_tokens: int = 16,
           smoke: bool = True, seed: int = 0, device="cuda") -> dict:
-    """Returns the prompt (B, prompt_len) and the greedy tokens
-    (B, new_tokens + 1) as numpy, ``tok_per_s``,
-    the wall times of the prefill and of the teacher-forced refill in ms, and
-    the logits (B, 1, padded_vocab) of the prefill's last position and of the
-    last teacher-forced step, which see the same prompt."""
+    """``generate`` on the model of ``arch`` and a batch of random prompts."""
     device = torch.device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     init = torch.device("cpu") if smoke else device
@@ -49,6 +49,18 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, new_tokens: int = 
     model = build_model(cfg, device=init, generator=gen).to(device)
     tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen,
                            device=init).to(device)
+    return generate(model, tokens, new_tokens)
+
+
+def generate(model: LM, tokens: torch.Tensor, new_tokens: int) -> dict:
+    """Serves the prompts ``tokens`` (B, prompt_len) on ``model``'s device.
+    Returns the prompt and the greedy tokens (B, new_tokens + 1) as numpy,
+    ``tok_per_s``, the wall times of the prefill and of the teacher-forced
+    refill in ms, and the logits (B, 1, padded_vocab) of the prefill's last
+    position and of the last teacher-forced step, which see the same
+    prompt."""
+    device = tokens.device
+    batch, prompt_len = tokens.shape
     prefill, step = build_prefill_step(model), build_decode_step(model)
 
     _sync(device)
@@ -81,7 +93,8 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, new_tokens: int = 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="a dense, moe, ssm or hybrid arch, e.g. moonshot-v1-16b-a3b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=16)

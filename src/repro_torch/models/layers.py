@@ -1,4 +1,4 @@
-"""Layers of the dense LM family, and the mamba frontend's causal conv.
+"""Layers of the dense and MoE LM families, and the mamba frontend's causal conv.
 
 Counterpart of ``repro/models/layers.py``. Each layer is an ``nn.Module``
 whose parameters keep the JAX package's names and shapes (``wq`` is
@@ -10,6 +10,16 @@ the CUDA kernels for tensors on the card, the plain versions on the CPU; K
 and V keep their ``n_kv_heads`` heads, in the cache too, and are never
 repeated on the card. Projections stay ``torch.matmul``, as the JAX package
 left them to XLA.
+
+The MoE FFN (``MoE``, ``moe_apply``) follows the reference step for step:
+groups are batch rows, the top k of an f32 softmax taken in JAX's order
+(the lower expert first among equal probabilities), slots sorted stably by
+expert into capacity buffers, the later tokens of an over-full expert
+dropped, the experts' SwiGLU batched over the expert axis with ``bmm``
+(einsums in the reference, outside any Pallas kernel). The combine gathers,
+for each token, its kept slots and adds them in ascending expert order in
+f32, where the reference scatter-adds: no atomics, so two calls on the card
+give the same bits.
 """
 from __future__ import annotations
 
@@ -179,6 +189,115 @@ def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
     g = torch.matmul(x, p.w_gate)
     u = torch.matmul(x, p.w_up)
     return torch.matmul(F.silu(g) * u, p.w_down)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts: sort/gather dispatch, capacity buffers, gather combine
+# ---------------------------------------------------------------------------
+class MoE(nn.Module):
+    """``router`` (d, E) in f32 whatever ``param_dtype`` is; ``w_gate`` and
+    ``w_up`` (E, d, f), ``w_down`` (E, f, d) in ``param_dtype``."""
+
+    def __init__(self, cfg: ModelConfig, *, device, generator: torch.Generator):
+        super().__init__()
+        init = dict(dtype=dtype_of(cfg.param_dtype), device=device)
+        d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+        self.router = nn.Parameter(dense_init(generator, d, e, torch.float32, device))
+
+        def experts(fan_in, fan_out):
+            return torch.stack([dense_init(generator, fan_in, fan_out, **init)
+                                for _ in range(e)])
+
+        self.w_gate = nn.Parameter(experts(d, f))
+        self.w_up = nn.Parameter(experts(d, f))
+        self.w_down = nn.Parameter(experts(f, d))
+
+
+class Routing(NamedTuple):
+    """Where ``moe_apply`` sends each token. Slot (t, j) is token t's j-th
+    choice; the buffers are (B, E, cap)."""
+    top_e: torch.Tensor    # (B, S, K) experts, in descending probability
+    top_p: torch.Tensor    # (B, S, K) their renormalised probabilities, f32
+    rank: torch.Tensor     # (B, S, K) the slot's place in its expert's buffer
+    buf_tok: torch.Tensor  # (B, E, cap) the token feeding each buffer slot
+    valid: torch.Tensor    # (B, E, cap) the buffer slot holds a token
+    cap: int
+
+    @property
+    def kept(self) -> torch.Tensor:
+        """(B, S, K) the slot made it into its expert's buffer."""
+        return self.rank < self.cap
+
+
+def _gate_probs(p: MoE, x: torch.Tensor) -> torch.Tensor:
+    return torch.softmax(torch.matmul(x.to(torch.float32), p.router), dim=-1)
+
+
+def moe_route(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Routing:
+    """The dispatch of ``moe_apply`` over x (B, S, D)."""
+    b, s, _ = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap = min(int(cfg.capacity_factor * s * k / e + 1), s)
+    # jax.lax.top_k's order: a stable descending sort puts the lower expert
+    # first among equal probabilities (torch.topk does not).
+    top_p, top_e = torch.sort(_gate_probs(p, x), dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[..., :k], top_e[..., :k]
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    flat_e = top_e.reshape(b, s * k)                       # slot -> expert
+    sort_idx = torch.sort(flat_e, dim=-1, stable=True).indices
+    sorted_tok = sort_idx // k                             # slot -> its token
+    counts = F.one_hot(flat_e, e).sum(dim=1)               # (B, E)
+    offsets = torch.cumsum(counts, dim=-1) - counts        # exclusive
+    grid_c = torch.arange(cap, device=x.device)
+    gather_pos = offsets[:, :, None] + grid_c              # (B, E, C)
+    valid = grid_c < counts[:, :, None]
+    gather_pos = torch.clamp(gather_pos, 0, s * k - 1)
+    buf_tok = sorted_tok.gather(1, gather_pos.reshape(b, e * cap)).reshape(b, e, cap)
+    # A slot's place among its expert's slots, in token order.
+    inv = torch.argsort(sort_idx, dim=-1)
+    rank = (inv - offsets.gather(1, flat_e)).reshape(b, s, k)
+    return Routing(top_e, top_p, rank, buf_tok, valid, cap)
+
+
+def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Top-k MoE over tokens of one group. x: (B, S, D) -> (B, S, D)."""
+    b, s, d = x.shape
+    e = cfg.n_experts
+    r = moe_route(p, x, cfg)
+    cap = r.cap
+
+    # Dispatch (a gather), invalid buffer slots zero.
+    idx = r.buf_tok.reshape(b, e * cap, 1).expand(-1, -1, d)
+    xb = x.gather(1, idx).reshape(b, e, cap, d)
+    xb = xb.masked_fill(~r.valid[..., None], 0)
+
+    # Expert FFN, batched over E.
+    xe = xb.transpose(0, 1).reshape(e, b * cap, d)
+    h = F.silu(torch.bmm(xe, p.w_gate)) * torch.bmm(xe, p.w_up)
+    yb = torch.bmm(h, p.w_down).reshape(e, b, cap, d).transpose(0, 1)
+    yb = yb.reshape(b, e * cap, d)
+
+    # Combine: each token gathers its kept slots and adds them in f32, in
+    # ascending expert order (the order of the reference's scatter-add).
+    order = torch.argsort(r.top_e, dim=-1)
+    e_s, p_s, c_s = (t.gather(-1, order) for t in (r.top_e, r.top_p, r.rank))
+    slot = (e_s * cap + torch.clamp(c_s, max=cap - 1)).reshape(b, -1, 1)
+    rows = yb.gather(1, slot.expand(-1, -1, d)).reshape(b, s, -1, d)
+    contrib = torch.where((c_s < cap)[..., None], rows.to(torch.float32) * p_s[..., None], 0.0)
+    y = contrib[:, :, 0]
+    for j in range(1, contrib.shape[2]):
+        y = y + contrib[:, :, j]
+    return y.to(x.dtype)
+
+
+def moe_aux_loss(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch-style)."""
+    probs = _gate_probs(p, x)
+    top1 = torch.argmax(probs, dim=-1)
+    frac_tokens = F.one_hot(top1, cfg.n_experts).to(torch.float32).mean(dim=(0, 1))
+    frac_probs = probs.mean(dim=(0, 1))
+    return cfg.n_experts * torch.sum(frac_tokens * frac_probs)
 
 
 # ---------------------------------------------------------------------------

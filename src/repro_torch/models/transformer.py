@@ -1,9 +1,12 @@
-"""Decoder LM of the dense and SSM families, split at block boundaries.
+"""Decoder LM of the dense, MoE, SSM and hybrid families, split at block boundaries.
 
 Counterpart of ``repro/models/transformer.py``:
   * The layer stack is a ``nn.ModuleList`` of blocks whose boundaries are
-    the Hapi split candidates. dense and ssm: block == one layer; gemma2:
-    block == (local, global) pair.
+    the Hapi split candidates. dense, moe and ssm: block == one layer;
+    gemma2: block == (local, global) pair; hybrid (jamba): block == one
+    period of ``attn_period`` sublayers, attention at ``attn_pos`` and mamba
+    elsewhere, a MoE FFN on every ``moe_every``-th sublayer and a SwiGLU MLP
+    on the others (``block_plan``).
   * ``LM.split_params(split)`` gives the two halves of the paper's tier
     split as modules that share the LM's parameters: ``Prefix`` runs the
     embedding and blocks [0, split) (``forward_prefix``), ``Suffix`` runs
@@ -14,12 +17,14 @@ Counterpart of ``repro/models/transformer.py``:
   * Serving: ``LM.prefill`` runs the prompt and returns the last position's
     logits with the decode cache, ``LM.decode_step`` runs one token at a
     host-int position against it, ``LM.init_cache`` makes an empty one. The
-    cache is a list with one dict per block (``{"sub0": KVCache, ...}``), not
-    a stack over a block axis; K and V are cached in bf16, unrepeated, and
-    written in place by ``decode_step``.
+    cache is a list with one dict per block (``{"sub0": KVCache, ...}``; a
+    hybrid block holds a ``KVCache`` for its attention sublayer and a
+    ``MambaCache`` for each mamba one), not a stack over a block axis; K and
+    V are cached in bf16, unrepeated, and written in place by
+    ``decode_step``.
 
-The moe, hybrid, vlm and encdec families are not ported yet and raise
-``NotImplementedError``.
+The vlm family is not ported yet and raises ``NotImplementedError`` (and
+encdec in ``models/api.py``).
 """
 from __future__ import annotations
 
@@ -70,31 +75,37 @@ def block_plan(cfg: ModelConfig) -> List[SubLayer]:
 # ---------------------------------------------------------------------------
 class Sublayer(nn.Module):
     """Pre-norm mixer (global or sliding-window attention, or mamba2), then a
-    pre-norm SwiGLU MLP where the plan has one."""
+    pre-norm FFN where the plan has one: a SwiGLU MLP or a MoE."""
 
     def __init__(self, cfg: ModelConfig, sub: SubLayer, *, device,
                  generator: torch.Generator):
         super().__init__()
-        if sub.mixer not in ("attn", "attn_local", "mamba") or sub.ffn not in ("mlp", "none"):
+        if sub.mixer not in ("attn", "attn_local", "mamba") or \
+                sub.ffn not in ("mlp", "moe", "none"):
             raise NotImplementedError(f"sublayer {sub} is not ported yet")
         init = dict(dtype=dtype_of(cfg.param_dtype), device=device)
         self.cfg = cfg
         self.is_mamba = sub.mixer == "mamba"
-        self.has_mlp = sub.ffn == "mlp"
+        self.ffn = sub.ffn
         self.window = cfg.sliding_window if sub.mixer == "attn_local" else None
         self.ln_mixer = L.RMSNorm(cfg.d_model, cfg.norm_eps, **init)
         if self.is_mamba:
             self.mamba = S.Mamba(cfg, device=device, generator=generator)
         else:
             self.attn = L.Attention(cfg, device=device, generator=generator)
-        if self.has_mlp:
+        if self.ffn != "none":
             self.ln_ffn = L.RMSNorm(cfg.d_model, cfg.norm_eps, **init)
+        if self.ffn == "mlp":
             self.mlp = L.MLP(cfg, device=device, generator=generator)
+        elif self.ffn == "moe":
+            self.moe = L.MoE(cfg, device=device, generator=generator)
 
     def _ffn(self, h: torch.Tensor) -> torch.Tensor:
-        if not self.has_mlp:
-            return h
-        return h + L.mlp_apply(self.mlp, self.ln_ffn(h))
+        if self.ffn == "mlp":
+            return h + L.mlp_apply(self.mlp, self.ln_ffn(h))
+        if self.ffn == "moe":
+            return h + L.moe_apply(self.moe, self.ln_ffn(h), self.cfg)
+        return h
 
     def forward(self, h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         x = self.ln_mixer(h)
@@ -327,9 +338,9 @@ def merge_params(frozen: Prefix, trainable: Suffix) -> LM:
 
 
 def build_lm(cfg: ModelConfig, *, device="cuda", generator: torch.Generator) -> LM:
-    """A randomly initialised dense or SSM LM on ``device``; ``generator``
-    must be a generator of that device."""
-    if cfg.family not in ("dense", "ssm"):
+    """A randomly initialised dense, MoE, SSM or hybrid LM on ``device``;
+    ``generator`` must be a generator of that device."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"the {cfg.family} family is not ported yet")
     dt = dtype_of(cfg.param_dtype)
     embed = nn.Parameter(embed_init(generator, cfg.padded_vocab, cfg.d_model, dt, device))

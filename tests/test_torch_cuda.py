@@ -6,6 +6,7 @@ also runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+import copy
 import math
 
 import numpy as np
@@ -20,7 +21,10 @@ from repro_torch.kernels.int8_cases import INT8_ADVERSARIAL, int8_adversarial
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd_scan as tsk
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.tier_split import make_vision_executor
+from repro_torch.launch.serve import serve
+from repro_torch.models import layers as tl
 from repro_torch.models import vision as tv
 
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -138,6 +142,7 @@ def test_cuda_flash_f32_small_head_dims(card, hd, b, s, h, hkv, causal, window, 
     (1, 190, 4, 2, 128, False, 30, None),
     (1, 1, 2, 2, 64, True, None, None),
     (2, 196, 6, 6, 64, False, None, None),        # a ViT encoder block's attention
+    (2, 600, 16, 16, 128, True, None, None),      # moonshot-v1-16b-a3b's heads, group 1
 ])
 def test_cuda_flash_matches_plain(card, dtype, b, s, h, hkv, hd, causal, window, cap):
     dt = _TORCH[dtype]
@@ -390,6 +395,7 @@ def test_cuda_flash_fn_under_autograd_and_remat(card):
     (2, 200, 8, 1, 256, 77, None, 50.0),       # MQA, hd 256, softcap
     (1, 4096, 16, 8, 256, 3000, 1024, 50.0),   # gemma2 local layer
     (4, 544, 32, 8, 128, 544, None, None),     # the serving path's shape
+    (4, 544, 16, 16, 128, 544, None, None),    # moonshot-v1-16b-a3b's decode, group 1
     (2, 100, 4, 4, 64, 90, 0, None),           # window 0: the newest key alone
 ])
 def test_cuda_decode_attention_matches_plain(card, dtype, b, s, hq, hkv, hd, length,
@@ -510,6 +516,7 @@ def test_cuda_decode_attention_f32_query_on_bf16_cache(card):
     (2, 128, 8, 64, 128, 128),
     (1, 512, 4, 64, 128, 256),     # mamba2's chunk
     (2, 48, 3, 16, 16, 16),        # the smoke model's shape
+    (4, 512, 128, 64, 16, 256),    # jamba-v0.1-52b's prefill: 128 heads, N 16
 ])
 def test_cuda_ssd_scan_matches_plain(card, dtype, b, s, h, p, n, chunk):
     dt = _TORCH[dtype]
@@ -831,3 +838,60 @@ def test_cuda_vision_executor_matches_the_cpu_port(card, name, split, compress):
     else:
         assert got.dtype == np.float32 and got.shape == want.shape
         assert np.linalg.norm(got - want) <= 1e-4 * np.linalg.norm(want)
+
+
+def _on_grid(t, step):
+    """``t`` rounded to multiples of ``step``. The MoE tests put the router
+    (multiples of 1/256) and its input (multiples of 1/64, |x| <= 4, exact in
+    bf16) on such grids: every product is then a multiple of 2**-14 and every
+    partial sum of the f32 gate logits is exact, whatever the order, so the
+    card and the CPU route the same tokens."""
+    return torch.round(t / step) * step
+
+
+@pytest.mark.cuda
+def test_cuda_moe_matches_the_cpu_at_moonshot_width(card):
+    """moonshot-v1-16b-a3b's MoE (d 2048, 64 experts top-6, f 1408, bf16) at
+    the published capacity 1.25, so slots drop: the card routes as the CPU
+    does, its output is within 2e-2 relative L2 of the CPU's, and two calls
+    on the card give the same bits."""
+    cfg = get_config("moonshot-v1-16b-a3b")
+    cpu = tl.MoE(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        cpu.router.copy_(_on_grid(cpu.router, 1 / 256))
+    gpu = copy.deepcopy(cpu).to(card)
+    x = _on_grid(torch.from_numpy(_normal((2, 256, cfg.d_model), 71)), 1 / 64).clamp(-4, 4)
+    x = x.to(torch.bfloat16)
+    with torch.no_grad():
+        want, rw = tl.moe_apply(cpu, x, cfg), tl.moe_route(cpu, x, cfg)
+        got, rg = tl.moe_apply(gpu, x.to(card), cfg), tl.moe_route(gpu, x.to(card), cfg)
+        again = tl.moe_apply(gpu, x.to(card), cfg)
+    assert not bool(rw.kept.all()), "capacity 1.25 must drop slots here"
+    for name in ("top_e", "rank", "valid"):
+        assert torch.equal(getattr(rg, name).cpu(), getattr(rw, name)), name
+    assert torch.equal(torch.where(rg.valid, rg.buf_tok, -1).cpu(),
+                       torch.where(rw.valid, rw.buf_tok, -1))
+    assert torch.equal(got, again)
+    err = (got.cpu().double() - want.double()).norm() / want.double().norm()
+    assert got.dtype == torch.bfloat16 and float(err) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "jamba-v0.1-52b"])
+def test_cuda_smoke_serve_matches_the_cpu(card, arch):
+    """serve() at its defaults (the f32 smoke config, the same seeded weights
+    and prompts on both devices): the prefill's logits to 1e-4 relative L2;
+    a flash launch per attention sublayer of the prefill and a decode launch
+    per attention sublayer and step, an SSD launch per mamba sublayer."""
+    tops.reset_launch_counts()
+    got = serve(arch)
+    counts = tops.launch_counts()
+    want = serve(arch, device="cpu")
+    assert np.array_equal(got["prompt"], want["prompt"])
+    v = get_smoke_config(arch).vocab_size
+    a, b = got["prefill_logits"][..., :v].cpu().double(), want["prefill_logits"][..., :v].double()
+    assert torch.isfinite(a).all() and float((a - b).norm() / b.norm()) <= 1e-4
+    steps = got["prompt"].shape[1] + got["tokens"].shape[1] - 1
+    assert counts["flash_attention"] > 0
+    assert counts["decode_attention"] == counts["flash_attention"] * steps
+    assert (counts["ssd_scan"] > 0) == (arch == "jamba-v0.1-52b")

@@ -108,7 +108,8 @@ def test_adapt_batches_matches_jax():
         assert (got.dropped, got.mem_used, got.budget) == (exp.dropped, exp.mem_used, exp.budget)
 
 
-@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "qwen3-32b", "gemma2-9b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "qwen3-32b", "gemma2-9b", "mamba2-1.3b",
+                                  "moonshot-v1-16b-a3b", "jamba-v0.1-52b"])
 @pytest.mark.parametrize("budget", [1e6, 1e9, 16e9, 80e9, 1e12])
 @pytest.mark.parametrize("smoke", [True, False])
 def test_plan_tiers_matches_jax(arch, budget, smoke):
@@ -139,6 +140,24 @@ def test_mistral_slice_plan_and_wire_bytes():
             torch.empty(4, 4096, 40, dtype=torch.float32, device="meta"))
     assert tts.wire_bytes(acts) == 83_886_080 + 2_621_440 == 86_507_520
     assert plan.decision.wire_bytes_per_iter == 86_507_520
+
+
+def test_moonshot_slice_plan_and_wire_bytes():
+    """The MoE pushdown of the card's smoke run: moonshot-v1-16b-a3b at
+    2 x 4,096 splits at its freeze index 36 with COS batch 1, as the JAX
+    package plans it, and puts 16,777,216 + 524,288 bytes on the wire."""
+    hapi = HapiConfig(compress_transfer=True, cos_batch=1, cos_batch_min=1)
+    plan = tts.plan_tiers(get_config("moonshot-v1-16b-a3b"), ShapeConfig("slice", "train", 4096, 2),
+                          hapi)
+    exp = jts.plan_tiers(j_get_config("moonshot-v1-16b-a3b"), JShape("slice", "train", 4096, 2),
+                         JHapi(compress_transfer=True, cos_batch=1, cos_batch_min=1,
+                               cos_hbm_budget=80e9))
+    assert (plan.split, plan.cos_batch, plan.compress) == (36, 1, True)
+    assert (exp.split, exp.cos_batch) == (36, 1)
+    acts = (torch.empty(2, 4096, 2048, dtype=torch.int8, device="meta"),
+            torch.empty(2, 4096, 16, dtype=torch.float32, device="meta"))
+    assert tts.wire_bytes(acts) == 16_777_216 + 524_288 == 17_301_504
+    assert plan.decision.wire_bytes_per_iter == exp.decision.wire_bytes_per_iter == 17_301_504
 
 
 @pytest.mark.parametrize("n,cap", [(16, 12), (16, 16), (7, 3), (12, 5), (8, 1), (4, 9)])
@@ -172,7 +191,8 @@ def _batch(cfg, b, s, seed):
 
 @pytest.mark.parametrize("compress", [False, True])
 @pytest.mark.parametrize("cos_batch", [2, 4, 8])
-@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "qwen3-32b", "gemma2-9b"])
+@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "qwen3-32b", "gemma2-9b",
+                                  "moonshot-v1-16b-a3b", "jamba-v0.1-52b"])
 def test_extract_tune_matches_jax(arch, cos_batch, compress):
     cfg, jmodel, jparams, lm = _port(arch)
     # gemma2 at seq 1024, where JAX's local layers take their windowed path.

@@ -47,8 +47,9 @@ from repro_torch.models.api import build_model
 from repro_torch.optim import adamw as tadamw
 from repro_torch.train import steps as tsteps
 
-# The archs build_lm takes (dense and ssm families).
-LM_ARCHS = ["mistral-nemo-12b", "gemma2-9b", "qwen3-32b", "qwen1.5-110b", "mamba2-1.3b"]
+# The archs build_lm takes (dense, moe, ssm and hybrid families).
+LM_ARCHS = ["mistral-nemo-12b", "gemma2-9b", "qwen3-32b", "qwen1.5-110b", "mamba2-1.3b",
+            "moonshot-v1-16b-a3b", "grok-1-314b", "jamba-v0.1-52b"]
 
 
 def _np(x):
