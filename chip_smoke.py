@@ -6,7 +6,10 @@
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
 per source, all at once) and holds each kernel against its plain PyTorch
 version on the card (the flash backward also against SDPA's backward as a
-yardstick), then drives the port's three paths at full width:
+yardstick; each flash case on the route ``fwd_route`` names, checked against
+the C side's and printed: ``wgmma`` for bf16, split TF32 for f32 at head
+dims 64 and 128, FMA for f32 at 16, 32 and 256), then drives the port's
+three paths at full width:
 
 * HAPI's forward pushdown path as a storage tier serving requests: a
   full-width two-block mistral-nemo-12b gives the same loss on the card
@@ -56,9 +59,15 @@ yardstick), then drives the port's three paths at full width:
   1,000 images from the port's ``ObjectStore`` goes through
   ``make_vision_executor`` on the card: the prefix over COS-batch
   microbatches (flash attention in each ViT block) and the boundary
-  int8-quantized, with exact launches and the measured wire bytes held to
-  the int8 formula; per-layer times of AlexNet and ResNet18 at the
-  COS batch.
+  int8-quantized, with exact launches (the ViT's flash launches all on the
+  split-TF32 route) and the measured wire bytes held to the int8 formula;
+  per-layer times of AlexNet and ResNet18 at the COS batch; flash attention
+  at the ViT block's shape (200, 196, 6 heads of 64, f32, non-causal) held
+  to its plain version and timed beside its bound (bytes, or the split-TF32
+  route's three TF32 products at the TF32 peak), the bound of its f32
+  operations on the CUDA cores and SDPA, on a row of its own in the kernels
+  line (``flash_attention_vit``) that takes the vision path's flash
+  launches.
 
 Weights are random, from seeded ``torch.Generator``s. Exits non-zero on any
 failure, and without a GPU. It prints each phase's wall time. Its last lines
@@ -99,8 +108,9 @@ from repro_torch.cos.objectstore import ObjectStore  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import int8_transfer, ssd_scan  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
+from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    bwd_tile_config, flash_attention_bwd_cuda, flash_attention_cuda)
+    bwd_tile_config, flash_attention_bwd_cuda, flash_attention_cuda, fwd_route)
 from repro_torch.kernels.int8_cases import INT8_ADVERSARIAL, int8_adversarial  # noqa: E402
 from repro_torch.kernels.int8_transfer import (  # noqa: E402
     dequantize_int8_cuda, quantize_int8_cuda)
@@ -473,19 +483,36 @@ FLASH_CASES = [
 ]
 
 
+def kernel_route(hd: int, dt: torch.dtype) -> str:
+    """The forward's route of (dtype, head dim) as the C side names it, held
+    to fwd_route's."""
+    import ctypes
+    lib = _build.load("flash_attention", flash._SIGNATURES)
+    got = [ctypes.c_int() for _ in range(5)]
+    rc = lib.flash_attention_fwd_route(0 if dt == torch.float32 else 1, hd,
+                                       *(ctypes.byref(x) for x in got))
+    route = flash.FWD_ROUTES[got[0].value]
+    check(rc == 0 and (route, *(x.value for x in got[1:])) == fwd_route(hd, dt),
+          f"flash_attention_fwd_route {rc} disagrees with fwd_route at hd {hd} {dt}")
+    return route
+
+
 def check_flash() -> dict:
     main = None
     for b, s, h, hkv, hd, causal, window, cap, dt, tol in FLASH_CASES:
         q = randn((b, s, h, hd), dt, seed=1)
         k = randn((b, s, hkv, hd), dt, seed=2)
         v = randn((b, s, hkv, hd), dt, seed=3)
+        route = kernel_route(hd, dt)
+        before = flash.fwd_routes[route]
         out = flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=cap)
+        check(flash.fwd_routes[route] == before + 1, f"flash hd {hd} {dt}: not the {route} route")
         kr, vr = ops.repeat_kv(k, h // hkv), ops.repeat_kv(v, h // hkv)
         exp = ref.flash_attention(q, kr, vr, causal=causal, window=window, softcap=cap)
         err = float((out.float() - exp.float()).abs().max())
         torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
         log(f"flash B={b} S={s} H={h} Hkv={hkv} hd={hd} causal={causal} window={window} "
-            f"softcap={cap} {str(dt)[6:]}: max abs err {err:.3g} (tol {tol:g})")
+            f"softcap={cap} {str(dt)[6:]}, route {route}: max abs err {err:.3g} (tol {tol:g})")
         if main is None:
             pairs = live_pairs(s, causal, window)
             fb, fby = bound((2 * b * s * h * hd + 2 * b * s * hkv * hd) * q.element_size(),
@@ -598,7 +625,8 @@ def check_flash_bwd() -> dict:
             torch.testing.assert_close(got.float(), exp.float(), atol=tol, rtol=tol,
                                        msg=f"flash_attention_bwd {name}")
         log(f"flash_bwd B={b} S={s} H={h} Hkv={hkv} hd={hd} causal={causal} window={window} "
-            f"softcap={cap} {str(dt)[6:]}, route {bwd_tile_config(hd, dt)[0]}: max abs err dq "
+            f"softcap={cap} {str(dt)[6:]}, route {bwd_tile_config(hd, dt)[0]} (forward "
+            f"{fwd_route(hd, dt)[0]}): max abs err dq "
             f"{errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g}, lse {lse_err:.3g} (tol {tol:g}); "
             f"two calls bit-equal {equal}")
         del grads, want
@@ -1627,12 +1655,16 @@ def vision_layer_ms(name: str, vm, images: np.ndarray, cos_batch: int, smi: str)
 
 
 def vision_kernel_ms(name: str, vm, images: np.ndarray, split: int, cos_batch: int,
-                     smi: str) -> None:
+                     smi: str) -> Optional[dict]:
     """The kernels at the executor's shapes: quantize on one COS-batch
     microbatch's float32 boundary, held bit for bit to the plain version and
     timed by CUDA-graph replay beside its bound; for the ViT, flash attention
-    at one block's shape (f32, non-causal) beside SDPA on the same inputs;
-    and the microbatch's copies between host and card, by CUDA events."""
+    at one block's shape (f32, non-causal) on the split-TF32 route, held to
+    the plain version and timed beside its bound (the larger of the bytes
+    and the three TF32 products the route issues at the TF32 peak), the
+    bound of the same f32 operations on the CUDA cores and SDPA on the same
+    inputs (returned as its row of the kernels line); and the microbatch's
+    copies between host and card, by CUDA events."""
     with torch.no_grad():
         mb = images[:cos_batch]
         x = vm.apply_range(torch.from_numpy(mb).cuda(), 0, split).contiguous()
@@ -1654,30 +1686,50 @@ def vision_kernel_ms(name: str, vm, images: np.ndarray, split: int, cos_batch: i
         first = next((i for i, layer in enumerate(vm.layers) if isinstance(layer, EncoderBlock)),
                      None)
         if first is None:
-            return
+            return None
         block = vm.layers[first]
         b, s, d = vm.apply_range(torch.from_numpy(mb).cuda(), 0, first).shape
         hd = d // block.heads
         q, k, v = (randn((b, s, block.heads, hd), torch.float32, seed=40 + i) for i in range(3))
-        fb, fby = bound(4 * b * s * d * 4, 4 * hd * b * block.heads * s * s, HW.peak_flops_f32)
+        flops = 4 * hd * b * block.heads * s * s
+        nbytes = 4 * b * s * d * 4
+        fb, fby = bound(nbytes, 3 * flops, HW.peak_flops_tf32)
+        fma_ms = bound(nbytes, flops, HW.peak_flops_f32)[0]
         sdpa = torch.nn.functional.scaled_dot_product_attention
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        ms = device_ms(lambda: flash_attention_cuda(q, k, v, causal=False), 20)
-        lib = device_ms(lambda: sdpa(qt, kt, vt), 20)
+        route = kernel_route(hd, q.dtype)
+        before = flash.fwd_routes["3xtf32"]
+        out = flash_attention_cuda(q, k, v, causal=False)
+        check(route == "3xtf32" and flash.fwd_routes["3xtf32"] == before + 1,
+              f"vision {name}: flash at hd {hd} f32 did not take the 3xtf32 route")
+        exp = ref.flash_attention(q, k, v, causal=False)
+        torch.testing.assert_close(out, exp, atol=F32_TOL, rtol=F32_TOL)
+        row = dict(max_abs_err=float((out - exp).abs().max()),
+                   ms=device_ms(lambda: flash_attention_cuda(q, k, v, causal=False), 20),
+                   plain_ms=time_ms(lambda: ref.flash_attention(q, k, v, causal=False), 3, 1),
+                   bound_ms=fb, bound_by=fby, library_ms=device_ms(lambda: sdpa(qt, kt, vt), 20))
         log(f"vision {name}: flash_attention on ({b}, {s}, {block.heads}, {hd}) float32 "
-            f"non-causal: {ms:.4f} ms, bound {fb:.4f} ms ({fby}), scaled_dot_product_attention "
-            f"{lib:.4f} ms; {smi}")
+            f"non-causal, route {route}: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"bound {fb:.4f} ms ({fby}; {nbytes / 1e6:.1f} MB, 3 x {flops / 1e9:.2f} GFLOP of "
+            f"TF32 products at {HW.peak_flops_tf32 / 1e12:.0f} TFLOP/s), f32 CUDA-core bound "
+            f"{fma_ms:.4f} ms (at {HW.peak_flops_f32 / 1e12:.0f} TFLOP/s), "
+            f"scaled_dot_product_attention "
+            f"{row['library_ms']:.4f} ms, max abs err {row['max_abs_err']:.3g} (tol "
+            f"{F32_TOL:g}); {smi}")
+        return row
 
 
-def vision(smi: str) -> dict:
+def vision(smi: str) -> tuple:
     """Each paper model at full width: card vs CPU, the plan, then requests of
     one 1,000-image object through make_vision_executor on the card with the
-    counts read around each; returns the launches of each kernel."""
+    counts read around each (the ViT's flash launches all on the split-TF32
+    route); returns the launches of each kernel and the ViT's flash row."""
     images = np.random.default_rng(30).standard_normal(
         (VISION_OBJECT, 224, 224, 3), dtype=np.float32)
     store = ObjectStore()
     (oname,) = store.put_dataset("images", {"x": images}, object_size=VISION_OBJECT)
     total = dict.fromkeys(KERNELS, 0)
+    vit_row = None
     for name, build in PAPER_MODELS.items():
         free()
         vm = build(device="cuda", generator=torch.Generator().manual_seed(0))
@@ -1697,6 +1749,7 @@ def vision(smi: str) -> dict:
         want = dict.fromkeys(KERNELS, 0)
         want.update(quantize_int8=n_mb, flash_attention=blocks * n_mb)
         ops.reset_launch_counts()
+        tf32_before = flash.fwd_routes["3xtf32"]
         for r in range(VISION_REQUESTS):
             before = ops.launch_counts()
             torch.cuda.synchronize()
@@ -1714,6 +1767,10 @@ def vision(smi: str) -> dict:
                 f"{dec.wire_bytes_per_iter:.0f}; launches {rose}")
             check(rose == want, f"{name}: launches {rose}, expected {want}")
             check(wire == want_wire, f"{name}: wire {wire} != {want_wire}")
+        tf32 = flash.fwd_routes["3xtf32"] - tf32_before
+        check(tf32 == VISION_REQUESTS * want["flash_attention"],
+              f"{name}: {tf32} flash launches on the 3xtf32 route, expected "
+              f"{VISION_REQUESTS * want['flash_attention']}")
         for k, v in ops.launch_counts().items():
             total[k] += v
         # The wire against the float32 boundary of the same object.
@@ -1728,12 +1785,14 @@ def vision(smi: str) -> dict:
         check(bool(np.isfinite(acts).all()) and bool((err <= 0.5 * step * (1 + 1e-5)
                                                        + 1e-6 * np.abs(acts)).all()),
               f"{name}: the int8 wire is off the float32 boundary")
-        vision_kernel_ms(name, vm, images, split, cos_batch, smi)
+        row = vision_kernel_ms(name, vm, images, split, cos_batch, smi)
+        if row is not None:
+            vit_row = row
         if name in VISION_FIG3:
             vision_layer_ms(name, vm, images, cos_batch, smi)
         del vm, execute, acts, deq, q, scales
     free()
-    return total
+    return total, vit_row
 
 
 def main() -> int:
@@ -1769,7 +1828,7 @@ def main() -> int:
     trained = phase("training", train_slice)
     trained_ssm = phase("training_ssm", lambda: train_slice(
         SSM_ARCH, get_config(SSM_ARCH).n_layers, 36, SSM_WIRE_BYTES, SSM_TRAIN_LAUNCHES))
-    seen = phase("vision", lambda: vision(smi))
+    seen, kernels["flash_attention_vit"] = phase("vision", lambda: vision(smi))
     launches = {name: pushdown[name] + served[name] + trained[name] + trained_ssm[name]
                 + seen[name] for name in KERNELS}
     log(f"launches: pushdown {pushdown}, serving {served}, training {trained}, "
@@ -1777,23 +1836,25 @@ def main() -> int:
     log(f"phase wall seconds {phases}; total {time.perf_counter() - t_start:.1f} s")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main paths")
-    # Rows of their own, timed at another model's shape: that model's
-    # served launches go there and are taken out of the kernel's main row.
-    own_rows = [("ssd_scan", "ssd_scan_jamba", "jamba-v0.1-52b",
-                 "ssd_scan at jamba-v0.1-52b's prefill (4 x 512, 128 heads of 64, N 16)"),
-                ("decode_attention", "decode_attention_moonshot", "moonshot-v1-16b-a3b",
-                 "decode_attention at moonshot-v1-16b-a3b's decode (4 x 544, 16/16 heads, "
-                 "hd 128, bf16)")]
+    # Rows of their own, timed at another path's shape: that path's launches
+    # go there and are taken out of the kernel's main row.
+    own_rows = [("ssd_scan", "ssd_scan_jamba", served_by_arch["jamba-v0.1-52b"]["ssd_scan"],
+                 "jamba-v0.1-52b's prefill (4 x 512, 128 heads of 64, N 16)"),
+                ("decode_attention", "decode_attention_moonshot",
+                 served_by_arch["moonshot-v1-16b-a3b"]["decode_attention"],
+                 "moonshot-v1-16b-a3b's decode (4 x 544, 16/16 heads, hd 128, bf16)"),
+                ("flash_attention", "flash_attention_vit", seen["flash_attention"],
+                 "the ViT's blocks at the COS batch (200 x 196, 6 heads of 64, f32, "
+                 "non-causal; route 3xtf32)")]
     main_launches = dict(launches)
-    for kernel, _, arch, _ in own_rows:
-        main_launches[kernel] -= served_by_arch[arch][kernel]
+    for kernel, _, n, _ in own_rows:
+        main_launches[kernel] -= n
     line = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": main_launches[name], **kernels[name]}
             for name, (src, rep) in KERNELS.items()]
-    line += [{"name": label, "route": "cuda", "source": KERNELS[kernel][0],
-              "replaces": KERNELS[kernel][1], "launches": served_by_arch[arch][kernel],
-              **kernels[row]}
-             for kernel, row, arch, label in own_rows]
+    line += [{"name": row, "shape": shape, "route": "cuda", "source": KERNELS[kernel][0],
+              "replaces": KERNELS[kernel][1], "launches": n, **kernels[row]}
+             for kernel, row, n, shape in own_rows]
     log(smi)
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

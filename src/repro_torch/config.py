@@ -27,6 +27,7 @@ class HardwareSpec:
     name: str = "h100-sxm"
     peak_flops_bf16: float = 989e12          # FLOP/s, tensor cores, dense
     peak_flops_f32: float = 67e12            # FLOP/s, outside the tensor cores
+    peak_flops_tf32: float = 495e12          # FLOP/s, tensor cores, dense
     hbm_bandwidth: float = 3.35e12           # bytes/s
     hbm_capacity: float = 80e9               # bytes
 

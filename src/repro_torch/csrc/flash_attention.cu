@@ -45,12 +45,85 @@
 //   masks per element only on tiles that cross the diagonal, the window's
 //   lower edge or S, and carries no tanh unless the soft-cap is on (a
 //   template argument).
-// f32 inputs take a plain FMA path (32x32 tiles, 128 threads); no bf16 model
-// reaches it, the f32 smoke configs (head dim 16) do.
+//
+// f32 inputs at head dims 64 and 128 (the paper's ViT: (200, 196, 6, 64),
+// non-causal, 100 launches a run of the vision path) take a tensor-core
+// route, split TF32 ("3xTF32") on mma.sync; at 16, 32 and 256 (the smoke
+// configs, and the one f32 case at 256) a plain FMA kernel (32x32 tiles,
+// 128 threads). The route is fixed by (dtype, head dim) before launch
+// (flash_attention_fwd_route; kernels/flash_attention.py's fwd_route).
+//
+// What bounds the f32 route. At the ViT's shape the two products need
+// 4*hd*B*H*S^2 = 11.80 GFLOP, 0.1761 ms at the 67 TFLOP/s of the CUDA cores;
+// one TF32 pass on the tensor cores would take 0.0238 ms at 495 TFLOP/s, but
+// keeps 10 bits of each operand, 21x over the f32 tolerance. So each operand
+// x is split into hi = x rounded to TF32 (nearest, ties away) and lo =
+// (x - hi) rounded to TF32, both exact TF32 values (the low 13 bits cleared,
+// so the result does not depend on how the tensor core treats them), and
+// each product is hi.hi + hi.lo + lo.hi, accumulated in f32 (lo.lo, about
+// 2^-22 of the product, is dropped): three TF32 products, 0.0715 ms at 495
+// TFLOP/s, under the 240.8 MB's 0.0719 ms at 3.35 TB/s: the route's bound is
+// its bytes. Its error against the plain version at that shape, 7.6e-6 (the
+// FMA kernel's 1.1e-6), comes from the tensor cores' accumulation, not from
+// ex2.approx (tools/ab_flash_f32.py's ERROR_VARIANTS): a fresh accumulator
+// each k-step, added on the CUDA cores, gives 1.7e-6 for 23% more time.
+//
+// Why mma.sync m16n8k8 and not wgmma: the split needs each operand in
+// registers once anyway, and mma.sync leaves the shared-memory layout and
+// the order of the reduction index free, so that every fragment load is one
+// conflict-free 16-byte load (below); wgmma's TF32 operands (K-major only, no
+// transpose bit) would need the canonical swizzled layouts of hi and lo
+// copies, which only the card could debug. The cost is the rate: mma.sync
+// m16n8k8 in TF32 reaches 321 TFLOP/s on an H100 (tools/ab_flash_f32.py),
+// 65% of wgmma's 495, so the three products' floor at the ViT's shape is
+// 0.110 ms.
+//
+// The design (flash_fwd_tf32), in the shape of FlashAttention-2, with a
+// producer warp:
+// - A consumer warp owns two strips of 16 query rows at hd 64 (one at hd
+//   128), so that each K or V fragment it loads feeds two accumulators; a
+//   block owns one (batch, head) and up to 7 consumer warps, S's rows shared
+//   out evenly over the fewest blocks (tf32_launch). At S = 196 a block owns
+//   all 7 warps' 224 rows (28 of them padding: 12.5%), reads K and V once,
+//   and the 1,200 (batch, head) pairs are 1,200 blocks, one an SM at a time
+//   (180,256 bytes of shared memory; up to 255 registers a thread, no
+//   spills).
+// - Each consumer splits its own Q rows once, into shared memory in fragment
+//   order. The block's eighth warp is the producer: it reads K and V in
+//   tiles of 2,048 values (32 keys at hd 64, 16 at hd 128), each tile's
+//   loads in flight at once and the next tile prefetched into L2, splits
+//   them into K hi and lo and V^T hi and lo (V transposed in registers, so
+//   that P.V's B operand is K-major as well) in a ring of two stages, and
+//   completes a stage's full mbarrier; each consumer releases a stage on its
+//   empty mbarrier. There is no block-wide barrier in the loop, so the warps
+//   drift apart and one's softmax runs while another's products do, and the
+//   split runs beside both. Keys past S are zero-filled and their products
+//   skipped (196 = 6 x 32 + 4: the last tile computes 32 keys in S, 16 in
+//   P.V).
+// - The reduction index of each product is permuted, the same way in both
+//   operands, so that a thread's 4 values of two k-steps are adjacent: S =
+//   Q.K^T reads a float4 of K for two k-steps; P.V takes P from the score
+//   registers (which hold keys 2t and 2t + 1 of each group of 8) and V^T is
+//   stored with each group of 16 keys in the matching order. K and V^T are
+//   swizzled by 16-byte chunk (chunk ^ f(row), f a permutation of the row's
+//   low 3 bits) so that the fragment loads hit distinct banks.
+// - Products are issued for 4 accumulators at a time, so that consecutive
+//   mma.sync are independent. Softmax, masks (as each row's interval of live
+//   keys), soft-cap and LSE as in the bf16 kernel, in base 2 (the scale in
+//   the exponent's FMA, ex2.approx), per warp over the KV tiles its rows can
+//   see.
+// - What holds it back (PERF.md): 2.7x over the products' floor at
+//   mma.sync's rate, 4.1x over the bound, at the ViT's shape. Issuing the next tile's products before the softmax needs
+//   registers that a consumer no longer has (an attempt with the block-wide
+//   barriers measured slower); a third ring stage moved nothing.
+// Calls are deterministic (no atomics).
 //
 // C interface: flash_attention_fwd returns cudaGetLastError() after its
-// launch, or an error code without launching; lse may be null. dtype codes:
-// 0 = float32, 1 = bfloat16. head_dim 64, 128 or 256 in bf16; also 16 and 32 in f32.
+// launch, or an error code without launching, and writes the route it
+// launched to *route; lse and route may be null. dtype codes: 0 = float32,
+// 1 = bfloat16. head_dim 64, 128 or 256 in bf16; also 16 and 32 in f32.
+// flash_attention_fwd_route gives the route of (dtype, head dim),
+// flash_attention_tf32_launch the split-TF32 route's grid.
 
 #include <cuda.h>  // CUtensorMap; the encoder itself comes from the runtime
 #include <cuda_bf16.h>
@@ -659,6 +732,445 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32 at head dims 64 and 128: split TF32 (3xTF32) on mma.sync
+// ---------------------------------------------------------------------------
+template <int HD>
+struct Tf32 {
+  static constexpr int kTile = 2048;                    // values of one K or V tile
+  static constexpr int kBN = kTile / HD;                // keys of a tile: 32 or 16
+  static constexpr int kStrips = HD == 64 ? 2 : 1;      // 16-row query strips a warp
+  static constexpr int kMaxWarps = 7;                   // consumer warps a block
+  static constexpr int kStages = 2;                     // split tiles in the ring
+  static constexpr int kGroup = 4;  // K or V fragments a warp loads at once
+  static constexpr int kGroupS = kGroup < kBN / 8 ? kGroup : kBN / 8;  // in S = Q K^T
+  static constexpr int kQChunks = HD / 4;               // 16-byte chunks of a K row
+  static constexpr int kVChunks = kBN / 4;              // 16-byte chunks of a V^T row
+  // Shared memory, from 0: Q hi and Q lo in f32 (16 kStrips rows a
+  // consumer warp each); kStages x (K hi, K lo, V^T hi, V^T lo); then a full
+  // and an empty mbarrier a stage.
+  static constexpr size_t bytes(int warps) {
+    return sizeof(float) *
+               (2 * static_cast<size_t>(warps) * 16 * kStrips * HD + 4 * kStages * kTile) +
+           16 * kStages;
+  }
+};
+
+// The rows of S, in warps of rows_a_warp, shared out evenly over the fewest
+// blocks of at most max_warps: (blocks a (batch, head), warps a block).
+void tf32_launch(int S, int rows_a_warp, int max_warps, int* blocks, int* warps) {
+  const int need = (S + rows_a_warp - 1) / rows_a_warp;
+  *blocks = (need + max_warps - 1) / max_warps;
+  *warps = (need + *blocks - 1) / *blocks;
+}
+
+// Float offset of 16-byte chunk c of row r in a buffer of `chunks` chunks a
+// row (4, or a multiple of 8). The chunk index is XORed with a permutation
+// of r's low 3 bits that flips bit 2 between rows 2i and 2i + 1: the 8 lanes
+// of a 16-byte load phase read rows r, r + 1 at chunks 4c' + t (t < 4),
+// which then fall in the two 64-byte halves of the banks; the 8 lanes of a
+// store write 8 consecutive chunks of one row each to its own 16 bytes of
+// the banks. Rows of 4 chunks (64 bytes) alternate halves by themselves and
+// XOR with bits 1-2 of r only.
+__device__ __forceinline__ int swz(int r, int c, int chunks) {
+  const int f = chunks >= 8 ? ((r & 1) << 2) | ((r >> 1) & 3) : (r >> 1) & 3;
+  return (r * chunks + (c ^ f)) * 4;
+}
+
+// x rounded to TF32 (to nearest, ties away), an exact TF32 value.
+__device__ __forceinline__ float tf32_round(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+__device__ __forceinline__ void tf32_split(float x, float& hi, float& lo) {
+  hi = tf32_round(x);
+  lo = tf32_round(x - hi);  // x - hi is exact in f32
+}
+
+__device__ __forceinline__ void tf32_split4(const float4 x, float4& hi, float4& lo) {
+  tf32_split(x.x, hi.x, lo.x);
+  tf32_split(x.y, hi.y, lo.y);
+  tf32_split(x.z, hi.z, lo.z);
+  tf32_split(x.w, hi.w, lo.w);
+}
+
+// D (16 x 8) += A (16 x 8) . B (8 x 8), TF32 operands, f32 accumulator.
+// A: a0 (row g, k t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
+// B: b0 (k t, col g), b1 (t + 4, g); D: (g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1); g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], float a0, float a1, float a2, float a3,
+                                         float b0, float b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(__float_as_uint(a0)), "r"(__float_as_uint(a1)), "r"(__float_as_uint(a2)),
+        "r"(__float_as_uint(a3)), "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+// A float4 of a B fragment load holds two k-steps: the values of k t4 and
+// of k t4 + 4 of k-step s (0 or 1).
+__device__ __forceinline__ float k0_of(const float4& v, int s) { return s ? v.z : v.x; }
+__device__ __forceinline__ float k4_of(const float4& v, int s) { return s ? v.w : v.y; }
+
+// d[d0 + i] += hi.lo + lo.hi + hi.hi of A (a_hi, a_lo: a0..a3 in x..w)
+// against B_i (k-step s of b_hi[i], b_lo[i]), i < N, the small terms first:
+// each of the three products is issued for all N accumulators before the
+// next, so that consecutive mma.sync feed independent accumulators.
+template <int N, int M>
+__device__ __forceinline__ void mma3(float (&d)[M][4], int d0, const float4 a_hi,
+                                     const float4 a_lo, const float4 (&b_hi)[N],
+                                     const float4 (&b_lo)[N], int s) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    mma_tf32(d[d0 + i], a_hi.x, a_hi.y, a_hi.z, a_hi.w, k0_of(b_lo[i], s), k4_of(b_lo[i], s));
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    mma_tf32(d[d0 + i], a_lo.x, a_lo.y, a_lo.z, a_lo.w, k0_of(b_hi[i], s), k4_of(b_hi[i], s));
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    mma_tf32(d[d0 + i], a_hi.x, a_hi.y, a_hi.z, a_hi.w, k0_of(b_hi[i], s), k4_of(b_hi[i], s));
+}
+
+// 2^x on the MUFU unit (about 2 ulp; results below 2^-126 flush to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float4 lds4(const float* ptr) {
+  return *reinterpret_cast<const float4*>(ptr);
+}
+
+__device__ __forceinline__ void sts4(float* ptr, const float4 v) {
+  *reinterpret_cast<float4*>(ptr) = v;
+}
+
+template <int HD, bool CAP>
+__global__ void __launch_bounds__((Tf32<HD>::kMaxWarps + 1) * 32, 1)
+    flash_fwd_tf32(const Params p) {
+  using T = Tf32<HD>;
+  constexpr int kBN = T::kBN, kTile = T::kTile, kG = T::kGroup, kGS = T::kGroupS;
+  constexpr int kM = T::kStrips, kS = T::kStages;
+  static_assert((kBN / 8) % kGS == 0 && (HD / 8) % kG == 0 && kBN % 16 == 0,
+                "groups of whole key and hd blocks");
+  extern __shared__ __align__(16) float smf[];
+  const int n_warps = blockDim.x / 32 - 1;  // consumers; the last warp is the producer
+  const int bm = 16 * kM * n_warps;
+  float* const q_hi = smf;
+  float* const q_lo = q_hi + bm * HD;
+  float* const ring = q_lo + bm * HD;  // stage s: K hi, K lo, V^T hi, V^T lo, kTile each
+  const uint32_t bars = smem_u32(ring + 4 * kS * kTile);
+  auto full = [&](int s) { return bars + 8u * s; };          // the producer's 32 lanes
+  auto empty = [&](int s) { return bars + 8u * (kS + s); };  // one lane of each consumer
+
+  const int tid = threadIdx.x;
+  const int q_start = (gridDim.x - 1 - blockIdx.x) * bm;  // longest causal tiles first
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const float* const qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* const kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* const vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  int t_lo, t_hi;
+  kv_tiles(p, q_start, min(bm, p.S - q_start), kBN, t_lo, t_hi);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  if (tid == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full(s), 32);
+      mbar_init(empty(s), n_warps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  if (warp == n_warps) {
+    // Producer: tile t_lo + i into stage i % kS once every consumer has
+    // released it, read from device memory (all its loads in flight at once,
+    // the next tile prefetched into L2), split, V transposed, zeros past S;
+    // its lanes then complete the stage's full barrier.
+    for (int i = 0; t_lo + i < t_hi; ++i) {
+      const int st = i % kS;
+      const int kv_start = (t_lo + i) * kBN;
+      if (t_lo + i + 1 < t_hi) {
+        // The next tile's K and V rows, HD / 32 lines of 128 bytes each.
+#pragma unroll
+        for (int j = 0; j < kTile / 1024; ++j) {
+          const int line = lane + 32 * j, key = kv_start + kBN + line / (HD / 32);
+          const int off = 32 * (line % (HD / 32));
+          if (key < p.S) {
+            asm volatile("prefetch.global.L2 [%0];\n" ::"l"(kg + key * p.k_ss + off));
+            asm volatile("prefetch.global.L2 [%0];\n" ::"l"(vg + key * p.v_ss + off));
+          }
+        }
+      }
+      // K: chunk lane + 32 j is row r, 16-byte chunk c, as it is stored.
+      // V^T: chunk lane + 32 j is hd 4 d4 .. 4 d4 + 3 of keys 16 (c >> 2) +
+      // 2 (c & 3) + {0, 1, 8, 9}, transposed in registers into rows 4 d4 + e,
+      // chunk c.
+      float4 x[kTile / 128], v[kTile / 512][4];
+#pragma unroll
+      for (int j = 0; j < kTile / 128; ++j) {
+        const int idx = lane + 32 * j, r = idx / T::kQChunks, c = idx % T::kQChunks;
+        x[j] = kv_start + r < p.S
+                   ? __ldg(reinterpret_cast<const float4*>(kg + (kv_start + r) * p.k_ss + 4 * c))
+                   : zero;
+      }
+#pragma unroll
+      for (int j = 0; j < kTile / 512; ++j) {
+        const int idx = lane + 32 * j, d4 = idx % (HD / 4), c = idx / (HD / 4);
+        const int k0 = kv_start + 16 * (c >> 2) + 2 * (c & 3);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int key = k0 + (u & 1) + 8 * (u >> 1);
+          v[j][u] = key < p.S
+                        ? __ldg(reinterpret_cast<const float4*>(vg + key * p.v_ss + 4 * d4))
+                        : zero;
+        }
+      }
+      if (i >= kS) mbar_wait(empty(st), ((i / kS) - 1) & 1);
+      float* const k_hi = ring + st * 4 * kTile;
+#pragma unroll
+      for (int j = 0; j < kTile / 128; ++j) {
+        const int idx = lane + 32 * j, r = idx / T::kQChunks, c = idx % T::kQChunks;
+        float4 h4, l4;
+        tf32_split4(x[j], h4, l4);
+        sts4(k_hi + swz(r, c, T::kQChunks), h4);
+        sts4(k_hi + kTile + swz(r, c, T::kQChunks), l4);
+      }
+#pragma unroll
+      for (int j = 0; j < kTile / 512; ++j) {
+        const int idx = lane + 32 * j, d4 = idx % (HD / 4), c = idx / (HD / 4);
+        const float4 rows[4] = {make_float4(v[j][0].x, v[j][1].x, v[j][2].x, v[j][3].x),
+                                make_float4(v[j][0].y, v[j][1].y, v[j][2].y, v[j][3].y),
+                                make_float4(v[j][0].z, v[j][1].z, v[j][2].z, v[j][3].z),
+                                make_float4(v[j][0].w, v[j][1].w, v[j][2].w, v[j][3].w)};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float4 h4, l4;
+          tf32_split4(rows[e], h4, l4);
+          sts4(k_hi + 2 * kTile + swz(4 * d4 + e, c, T::kVChunks), h4);
+          sts4(k_hi + 3 * kTile + swz(4 * d4 + e, c, T::kVChunks), l4);
+        }
+      }
+      mbar_arrive(full(st));
+    }
+    return;
+  }
+
+  // Consumers: this warp's kM strips of 16 rows; strip s holds query
+  // positions first + 16 s + g and + g + 8.
+  const int first = q_start + warp * 16 * kM;
+  int w_lo, w_hi;  // the tiles these rows can see
+  kv_tiles(p, first, 16 * kM, kBN, w_lo, w_hi);
+  if (first >= p.S) w_hi = w_lo;
+
+  // Q, split once by the warp that owns it, in fragment order: the float4
+  // of (strip s, k-step pair c, step u, lane) is the lane's A fragment
+  // a0..a3 (rows g, g + 8 at hd 16c + 4t4 + 2u, then at + 2u + 1), so that
+  // one 16-byte load gives it; the lanes' 512 bytes are contiguous.
+  float4* const qf_hi = reinterpret_cast<float4*>(q_hi) + warp * kM * (HD / 8) * 32 + lane;
+  float4* const qf_lo = reinterpret_cast<float4*>(q_lo) + warp * kM * (HD / 8) * 32 + lane;
+  auto qf = [&](int s, int c, int u) { return (s * (HD / 8) + 2 * c + u) * 32; };
+  if (w_lo < w_hi) {
+#pragma unroll
+    for (int s = 0; s < kM; ++s) {
+      const int qa = first + 16 * s + g, qb = qa + 8;
+#pragma unroll
+      for (int c = 0; c < HD / 16; ++c) {
+        const float4 x0 =
+            qa < p.S ? *reinterpret_cast<const float4*>(qg + qa * p.q_ss + 16 * c + 4 * t4) : zero;
+        const float4 x1 =
+            qb < p.S ? *reinterpret_cast<const float4*>(qg + qb * p.q_ss + 16 * c + 4 * t4) : zero;
+        float4 hi, lo;
+        tf32_split4(make_float4(x0.x, x1.x, x0.y, x1.y), hi, lo);
+        qf_hi[qf(s, c, 0)] = hi;
+        qf_lo[qf(s, c, 0)] = lo;
+        tf32_split4(make_float4(x0.z, x1.z, x0.w, x1.w), hi, lo);
+        qf_hi[qf(s, c, 1)] = hi;
+        qf_lo[qf(s, c, 1)] = lo;
+      }
+    }
+  }
+  // Row r = 2 s + i of the thread (strip s, i = 0 for g, 1 for g + 8): its
+  // query position, and its live keys [lo, hi], the masks as an interval.
+  int qpos[2 * kM], lo[2 * kM], hi[2 * kM];
+#pragma unroll
+  for (int r = 0; r < 2 * kM; ++r) {
+    qpos[r] = first + 8 * r + g;
+    lo[r] = p.window >= 0 ? qpos[r] - p.window : 0;
+    hi[r] = p.causal ? min(qpos[r], p.S - 1) : p.S - 1;
+  }
+  // Scores are kept raw without the soft-cap and scaled into base 2 inside
+  // the exponent's FMA; with it, capped and scaled first.
+  const float sl = CAP ? 1.f : p.scale * kLog2e;
+
+  float o[kM][HD / 8][4];
+#pragma unroll
+  for (int s = 0; s < kM; ++s)
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) o[s][n][0] = o[s][n][1] = o[s][n][2] = o[s][n][3] = 0.f;
+  float m[2 * kM], l[2 * kM];
+#pragma unroll
+  for (int r = 0; r < 2 * kM; ++r) m[r] = kNegInf, l[r] = 0.f;
+
+  for (int it = 0; t_lo + it < t_hi; ++it) {
+    const int t = t_lo + it, st = it % kS;
+    const float* const k_hi = ring + st * 4 * kTile;
+    const float* const k_lo = k_hi + kTile;
+    const float* const v_hi = k_hi + 2 * kTile;  // V^T: row = hd, kBN keys a row
+    const float* const v_lo = k_hi + 3 * kTile;
+    // Every consumer waits on every phase and releases every stage, also of
+    // a tile it skips, so that the counts match.
+    mbar_wait(full(st), (it / kS) & 1);
+    if (t >= w_lo && t < w_hi) {
+      const int kv_start = t * kBN;
+      const int live_keys = min(kBN, p.S - kv_start);
+      // S = Q K^T. k-steps 2c and 2c + 1 take hd 16c + 4t4 + {0, 1} and
+      // + {2, 3}: one float4 of each operand. Groups of kGS key blocks of 8,
+      // past S skipped a group at a time; each K fragment feeds every strip.
+      float sc[kM][kBN / 8][4];
+#pragma unroll
+      for (int s = 0; s < kM; ++s)
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j) sc[s][j][0] = sc[s][j][1] = sc[s][j][2] = sc[s][j][3] = 0.f;
+#pragma unroll
+      for (int c = 0; c < HD / 16; ++c) {
+#pragma unroll
+        for (int j0 = 0; j0 < kBN / 8; j0 += kGS) {
+          if (8 * j0 >= live_keys) break;
+          float4 kh[kGS], kl[kGS];
+#pragma unroll
+          for (int i = 0; i < kGS; ++i) {
+            kh[i] = lds4(k_hi + swz(8 * (j0 + i) + g, 4 * c + t4, T::kQChunks));
+            kl[i] = lds4(k_lo + swz(8 * (j0 + i) + g, 4 * c + t4, T::kQChunks));
+          }
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int s = 0; s < kM; ++s)
+              mma3(sc[s], j0, qf_hi[qf(s, c, u)], qf_lo[qf(s, c, u)], kh, kl, u);
+        }
+      }
+
+      // Soft-cap (in base 2), then mask, only where the tile needs it. With
+      // the cap a masked score is -1e30, as in the reference; without it the
+      // raw score is -inf, whose exponential is 0 whatever the row's max: a
+      // raw -1e30 would leave fmaf a residual of about 1e22 in the exponent
+      // on a tile where all the row's keys are masked.
+      if constexpr (CAP) {
+#pragma unroll
+        for (int s = 0; s < kM; ++s)
+#pragma unroll
+          for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sc[s][j][e] = p.softcap * tanhf(sc[s][j][e] * p.scale / p.softcap) * kLog2e;
+      }
+      const bool masked = kv_start + kBN > p.S ||
+                          (p.causal && kv_start + kBN - 1 > first) ||
+                          (p.window >= 0 && kv_start < first + 16 * kM - 1 - p.window);
+      if (masked) {
+        const float off = CAP ? kNegInf : -INFINITY;
+#pragma unroll
+        for (int s = 0; s < kM; ++s)
+#pragma unroll
+          for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = 2 * s + (e >> 1), kpos = kv_start + 8 * j + 2 * t4 + (e & 1);
+              if (kpos < lo[r] || kpos > hi[r]) sc[s][j][e] = off;
+            }
+      }
+#pragma unroll
+      for (int s = 0; s < kM; ++s) {
+        float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j) {
+          mx0 = fmaxf(mx0, fmaxf(sc[s][j][0], sc[s][j][1]));
+          mx1 = fmaxf(mx1, fmaxf(sc[s][j][2], sc[s][j][3]));
+        }
+        const float mn0 = fmaxf(m[2 * s], quad_max(mx0) * sl);
+        const float mn1 = fmaxf(m[2 * s + 1], quad_max(mx1) * sl);
+        const float al0 = ex2(m[2 * s] - mn0), al1 = ex2(m[2 * s + 1] - mn1);
+        float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j) {
+          sc[s][j][0] = ex2(fmaf(sc[s][j][0], sl, -mn0));
+          sc[s][j][1] = ex2(fmaf(sc[s][j][1], sl, -mn0));
+          sc[s][j][2] = ex2(fmaf(sc[s][j][2], sl, -mn1));
+          sc[s][j][3] = ex2(fmaf(sc[s][j][3], sl, -mn1));
+          rs0 += sc[s][j][0] + sc[s][j][1];
+          rs1 += sc[s][j][2] + sc[s][j][3];
+        }
+        l[2 * s] = l[2 * s] * al0 + quad_sum(rs0);
+        l[2 * s + 1] = l[2 * s + 1] * al1 + quad_sum(rs1);
+        m[2 * s] = mn0;
+        m[2 * s + 1] = mn1;
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+          o[s][n][0] *= al0;
+          o[s][n][1] *= al0;
+          o[s][n][2] *= al1;
+          o[s][n][3] *= al1;
+        }
+      }
+
+      // O += P V over keys 16 j2 .. 16 j2 + 15: k-step 2 j2 takes the score
+      // registers of keys 8 j + 2 t4 + {0, 1}, j = 2 j2, as (k t4, k t4 + 4),
+      // and k-step 2 j2 + 1 those of j = 2 j2 + 1; V^T's chunk 4 j2 + t4 holds
+      // the same four keys. Each V fragment feeds every strip.
+#pragma unroll
+      for (int j2 = 0; j2 < kBN / 16; ++j2) {
+        if (16 * j2 >= live_keys) break;
+        float4 ph[kM][2], pl[kM][2];  // a0..a3: rows g, g + 8 at k t4, then at k t4 + 4
+#pragma unroll
+        for (int s = 0; s < kM; ++s)
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            tf32_split4(make_float4(sc[s][2 * j2 + u][0], sc[s][2 * j2 + u][2],
+                                    sc[s][2 * j2 + u][1], sc[s][2 * j2 + u][3]),
+                        ph[s][u], pl[s][u]);
+#pragma unroll
+        for (int n0 = 0; n0 < HD / 8; n0 += kG) {
+          float4 vh[kG], vl[kG];
+#pragma unroll
+          for (int i = 0; i < kG; ++i) {
+            vh[i] = lds4(v_hi + swz(8 * (n0 + i) + g, 4 * j2 + t4, T::kVChunks));
+            vl[i] = lds4(v_lo + swz(8 * (n0 + i) + g, 4 * j2 + t4, T::kVChunks));
+          }
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int s = 0; s < kM; ++s) mma3(o[s], n0, ph[s][u], pl[s][u], vh, vl, u);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+  }
+
+  const long long o_ss = static_cast<long long>(p.H) * HD;
+  float* const og = static_cast<float*>(p.o) + (static_cast<long long>(b) * p.S * p.H + h) * HD;
+  float* const lg =
+      p.lse != nullptr ? p.lse + (static_cast<long long>(b) * p.H + h) * p.S : nullptr;
+#pragma unroll
+  for (int r = 0; r < 2 * kM; ++r) {
+    if (qpos[r] >= p.S) continue;
+    const float lr = fmaxf(l[r], 1e-30f);
+    // The base-2 log-sum-exp of each row, for the backward: m is in base 2.
+    if (lg != nullptr && t4 == 0) lg[qpos[r]] = m[r] + log2f(lr);
+    const float inv = __frcp_rn(lr);
+    const int s = r >> 1, e = 2 * (r & 1);
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<float2*>(og + qpos[r] * o_ss + 8 * n + 2 * t4) =
+          make_float2(o[s][n][e] * inv, o[s][n][e + 1] * inv);
+  }
+}
 
 int launch_f32(void (*kernel)(Params), size_t smem, const Params& p, cudaStream_t stream) {
   if (smem > 48 * 1024) {
@@ -668,6 +1180,25 @@ int launch_f32(void (*kernel)(Params), size_t smem, const Params& p, cudaStream_
   }
   const dim3 grid((p.S + 31) / 32, p.B * p.H);
   kernel<<<grid, kThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD, bool CAP>
+int launch_tf32(const Params& p, cudaStream_t stream) {
+  using T = Tf32<HD>;
+  auto kernel = flash_fwd_tf32<HD, CAP>;
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(T::bytes(T::kMaxWarps)));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ready = true;
+  }
+  int blocks, warps;
+  tf32_launch(p.S, 16 * T::kStrips, T::kMaxWarps, &blocks, &warps);
+  // The consumer warps and the producer warp.
+  kernel<<<dim3(blocks, p.B * p.H), 32 * (warps + 1), T::bytes(warps), stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -757,26 +1288,34 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    long long k_sb, long long k_ss, long long k_sh,
                                    long long v_sb, long long v_ss, long long v_sh,
                                    int causal, int window, float softcap, float scale,
-                                   void* stream) {
+                                   int* route, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{q,    k,    v,    o,    lse,  B,    S,      H,      Hkv,     q_sb,  q_ss,
                  q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, window, softcap, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool cap = softcap > 0.f;
+  // The route code (flash_attention_fwd_route's) of the kernel launched.
+  auto took = [route](int code, int rc) {
+    if (route != nullptr) *route = code;
+    return rc;
+  };
   if (dtype == 1) {
     switch (hd) {
-      case 64: return cap ? launch_bf16<64, true>(p, st) : launch_bf16<64, false>(p, st);
-      case 128: return cap ? launch_bf16<128, true>(p, st) : launch_bf16<128, false>(p, st);
-      case 256: return cap ? launch_bf16<256, true>(p, st) : launch_bf16<256, false>(p, st);
+      case 64: return took(2, cap ? launch_bf16<64, true>(p, st) : launch_bf16<64, false>(p, st));
+      case 128:
+        return took(2, cap ? launch_bf16<128, true>(p, st) : launch_bf16<128, false>(p, st));
+      case 256:
+        return took(2, cap ? launch_bf16<256, true>(p, st) : launch_bf16<256, false>(p, st));
     }
   } else if (dtype == 0) {
     switch (hd) {
-      case 16: return launch_f32(flash_fwd_f32<16>, smem_f32<16>(), p, st);
-      case 32: return launch_f32(flash_fwd_f32<32>, smem_f32<32>(), p, st);
-      case 64: return launch_f32(flash_fwd_f32<64>, smem_f32<64>(), p, st);
-      case 128: return launch_f32(flash_fwd_f32<128>, smem_f32<128>(), p, st);
-      case 256: return launch_f32(flash_fwd_f32<256>, smem_f32<256>(), p, st);
+      case 16: return took(0, launch_f32(flash_fwd_f32<16>, smem_f32<16>(), p, st));
+      case 32: return took(0, launch_f32(flash_fwd_f32<32>, smem_f32<32>(), p, st));
+      case 64: return took(1, cap ? launch_tf32<64, true>(p, st) : launch_tf32<64, false>(p, st));
+      case 128:
+        return took(1, cap ? launch_tf32<128, true>(p, st) : launch_tf32<128, false>(p, st));
+      case 256: return took(0, launch_f32(flash_fwd_f32<256>, smem_f32<256>(), p, st));
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -794,5 +1333,53 @@ extern "C" int flash_attention_tile(int hd, int* bm, int* bn, int* stages, int* 
   }
   *bm = kBM;
   *stages = kStages;
+  return 0;
+}
+
+// The route of (dtype, head dim), chosen before any launch: 0 the FMA kernel
+// (f32 at 16, 32 and 256), 1 split TF32 on mma.sync (f32 at 64 and 128), 2
+// wgmma (bf16); and its largest block's (query rows, keys a KV tile, threads,
+// dynamic shared bytes). -1 for a pair no kernel takes.
+extern "C" int flash_attention_fwd_route(int dtype, int hd, int* route, int* bm, int* bn,
+                                         int* threads, int* smem) {
+  if (dtype == 1) {
+    int stages;
+    if (flash_attention_tile(hd, bm, bn, &stages, smem) != 0) return -1;
+    *route = 2;
+    *threads = kWsThreads;
+    return 0;
+  }
+  if (dtype != 0) return -1;
+  switch (hd) {
+    case 64:
+    case 128: {
+      const int warps = hd == 64 ? Tf32<64>::kMaxWarps : Tf32<128>::kMaxWarps;
+      *route = 1;
+      *bm = 16 * (hd == 64 ? Tf32<64>::kStrips : Tf32<128>::kStrips) * warps;
+      *bn = hd == 64 ? Tf32<64>::kBN : Tf32<128>::kBN;
+      *threads = 32 * (warps + 1);
+      *smem = static_cast<int>(hd == 64 ? Tf32<64>::bytes(warps) : Tf32<128>::bytes(warps));
+      return 0;
+    }
+    case 16: *smem = static_cast<int>(smem_f32<16>()); break;
+    case 32: *smem = static_cast<int>(smem_f32<32>()); break;
+    case 256: *smem = static_cast<int>(smem_f32<256>()); break;
+    default: return -1;
+  }
+  *route = 0;
+  *bm = *bn = 32;
+  *threads = kThreads;
+  return 0;
+}
+
+// The split-TF32 route's grid at head dim hd (64 or 128) and S rows, for the
+// host's checks: (blocks a (batch, head), consumer warps a block); -1 for
+// another head dim.
+extern "C" int flash_attention_tf32_launch(int hd, int S, int* blocks, int* warps) {
+  switch (hd) {
+    case 64: tf32_launch(S, 16 * Tf32<64>::kStrips, Tf32<64>::kMaxWarps, blocks, warps); break;
+    case 128: tf32_launch(S, 16 * Tf32<128>::kStrips, Tf32<128>::kMaxWarps, blocks, warps); break;
+    default: return -1;
+  }
   return 0;
 }

@@ -3,16 +3,21 @@
 Counterpart of ``repro/kernels/flash_attention.py``. The kernel is in
 ``csrc/flash_attention.cu``: online softmax over the KV tiles that the
 causal and window masks leave live, f32 m/l/acc, an optional tanh softcap.
+Its route is fixed by (dtype, head dim) before any launch (``fwd_route``):
 bf16 runs on ``wgmma`` with TMA loads and a producer warpgroup feeding two
 consumer warpgroups (``tile_config`` gives its tiles) at head dims 64, 128
-and 256 (a TMA box is 64 values wide); f32 takes an FMA path, also at head
-dims 16 and 32 (the smoke configs'). It keeps the public ``(B, S, H, hd)``
-layout and takes K and V with ``H`` heads or with ``Hkv`` heads where
-``Hkv`` divides ``H``; query head
-``h`` then reads KV head ``h // (H // Hkv)``, the order of
+and 256 (a TMA box is 64 values wide); f32 at head dims 64 and 128 (the
+paper's ViT) on the tensor cores in split TF32, each f32 operand as a
+TF32 hi and lo and each product hi.hi + hi.lo + lo.hi on ``mma.sync``;
+f32 at 16, 32 (the smoke configs') and 256 on an FMA kernel. The kernel
+reports the route it launched, and ``fwd_routes`` counts launches by that
+route. No route falls back to another: a kernel that fails to build or
+launch raises. It keeps the public ``(B, S, H, hd)`` layout and takes K and V
+with ``H`` heads or with ``Hkv`` heads where ``Hkv`` divides ``H``; query
+head ``h`` then reads KV head ``h // (H // Hkv)``, the order of
 ``layers._repeat_kv``. q, k and v may be strided views (of a fused QKV
 tensor, say) as long as the last stride is 1 and rows are 16-byte aligned,
-which is what TMA needs.
+which is what TMA and 16-byte loads need.
 
 Given ``lse=True`` the forward also returns each row's log-sum-exp in base
 2, ``(B, H, S)`` f32. ``flash_attention_bwd_cuda`` wraps the backward kernel
@@ -44,10 +49,15 @@ F32_HEAD_DIMS = (16, 32, 64, 128, 256)  # the f32 kernel's
 _SIGNATURES = {
     "flash_attention_fwd": (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+           ctypes.POINTER(ctypes.c_int), ctypes.c_void_p],
         ctypes.c_int),
     "flash_attention_tile": ([ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4,
                              ctypes.c_int),
+    "flash_attention_fwd_route": ([ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 5,
+                                  ctypes.c_int),
+    "flash_attention_tf32_launch": ([ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
+                                    ctypes.c_int),
 }
 _BWD_SIGNATURES = {
     "flash_attention_bwd": (
@@ -61,10 +71,20 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # The bf16 kernel's tiles, as csrc/flash_attention.cu's Layout sets them.
 BLOCK_M = 128            # query rows a block owns, 64 per consumer warpgroup
+WGMMA_THREADS = 384      # a producer warpgroup and two consumer warpgroups
 STAGES = 2               # depth of the K/V ring
 TMA_BOX = 64             # bf16 values in a TMA box's inner extent: 128 bytes, one swizzle row
 SMEM_LIMIT = 232_448     # dynamic shared memory a block may use on an H100
 N_BARRIERS = 3 + 3 * STAGES   # Q full; K full, V full, empty per stage; two turns
+
+# The forward's routes, as csrc/flash_attention.cu's flash_attention_fwd_route
+# numbers them: 0 the FMA kernel, 1 split TF32 on mma.sync, 2 wgmma.
+FWD_ROUTES = ("fma", "3xtf32", "wgmma")
+TF32_HEAD_DIMS = (64, 128)
+TF32_TILE = 2048         # values of a K or V tile: 32 keys at hd 64, 16 at hd 128
+TF32_STAGES = 2          # split K and V tiles in the producer's ring
+TF32_STRIPS = {64: 2, 128: 1}       # 16-row query strips a warp
+TF32_MAX_WARPS = {64: 7, 128: 7}    # consumer warps a block, beside one producer warp
 
 # The backward's routes and tiles, as csrc/flash_attention_bwd.cu sets them.
 BWD_ROUTES = ("fma", "mma", "wgmma")   # the C side's route codes 0, 1, 2
@@ -77,6 +97,7 @@ F32_TILE = 32            # the FMA route's tiles, 128 threads
 
 launches = 0
 bwd_launches = 0
+fwd_routes = dict.fromkeys(FWD_ROUTES, 0)   # forward launches by the route the kernel took
 
 
 def tile_config(hd: int) -> tuple:
@@ -88,6 +109,31 @@ def tile_config(hd: int) -> tuple:
     bn = 64 if hd == 256 else 128
     smem = 2 * hd * (BLOCK_M + 2 * STAGES * bn) + 8 * N_BARRIERS + 1024
     return BLOCK_M, bn, STAGES, smem
+
+
+def fwd_route(hd: int, dtype: torch.dtype) -> tuple:
+    """The forward's route at head dim ``hd`` in ``dtype``, fixed before any
+    launch, and its largest block: (route, query rows, keys a KV tile,
+    threads, dynamic shared bytes). "wgmma" for bf16 (``tile_config``);
+    "3xtf32" for f32 at head dims 64 and 128 (``TF32_MAX_WARPS`` consumer
+    warps of ``TF32_STRIPS`` strips of 16 rows and a producer warp; Q hi and
+    lo, a ring of ``TF32_STAGES`` tiles of ``TF32_TILE`` values of K hi and
+    lo and V^T hi and lo, a full and an empty mbarrier a stage); "fma" for
+    f32 at 16, 32 and 256 (32 x 32 tiles, 128 threads: Q, K with a padded
+    row, V, P)."""
+    if dtype == torch.bfloat16 and hd in HEAD_DIMS:
+        bm, bn, _, smem = tile_config(hd)
+        return "wgmma", bm, bn, WGMMA_THREADS, smem
+    if dtype == torch.float32 and hd in TF32_HEAD_DIMS:
+        w = TF32_MAX_WARPS[hd]
+        bm = 16 * TF32_STRIPS[hd] * w
+        smem = 4 * (2 * bm * hd + 4 * TF32_STAGES * TF32_TILE) + 16 * TF32_STAGES
+        return "3xtf32", bm, TF32_TILE // hd, 32 * (w + 1), smem
+    if dtype == torch.float32 and hd in F32_HEAD_DIMS:
+        t = F32_TILE
+        return "fma", t, t, 128, (2 * t * (hd + 1) + t * hd + t * (t + 1)) * 4
+    raise ValueError(f"the flash forward takes head_dim {HEAD_DIMS} in bfloat16 and "
+                     f"{F32_HEAD_DIMS} in float32, not {hd} in {dtype}")
 
 
 def bwd_tile_config(hd: int, dtype: torch.dtype) -> tuple:
@@ -179,16 +225,18 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse_t = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if lse else None
     if out.numel() == 0:
         return (out, lse_t) if lse else out
+    route = ctypes.c_int(-1)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse_t.data_ptr() if lse else None,
             _DTYPE_CODE[q.dtype], b, s, h, hkv, hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             int(causal), -1 if window is None else int(window),
-            0.0 if softcap is None else float(softcap), softmax_scale(hd))
+            0.0 if softcap is None else float(softcap), softmax_scale(hd), ctypes.byref(route))
     rc = _launch(_build.load("flash_attention", _SIGNATURES).flash_attention_fwd, q, args)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel failed: CUDA error {rc}")
     launches += 1
+    fwd_routes[FWD_ROUTES[route.value]] += 1
     return (out, lse_t) if lse else out
 
 

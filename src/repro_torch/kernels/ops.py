@@ -57,6 +57,7 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     fk.launches = 0
     fk.bwd_launches = 0
+    fk.fwd_routes.update(dict.fromkeys(fk.FWD_ROUTES, 0))
     ik.quantize_launches = 0
     ik.quantize_routes.update(vector=0, scalar=0)
     ik.dequantize_launches = 0

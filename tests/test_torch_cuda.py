@@ -132,29 +132,106 @@ def test_cuda_flash_f32_small_head_dims(card, hd, b, s, h, hkv, causal, window, 
     torch.testing.assert_close(out, exp, atol=2e-5, rtol=2e-5)
 
 
+# S around the 16-row strips, the 32-row warps and the 32- and 16-key tiles
+# of the split-TF32 route (f32 at head dims 64 and 128), and the ViT's 196,
+# which leaves a warp's last strip empty; with every mask
+# (causal, window, a window that admits future keys, soft-cap), KV heads 1
+# and 2, and views of a fused QKV tensor.
+_F32_TC_SEQS = (1, 63, 64, 65, 127, 129, 196, 1000)
+_F32_TC_MASKS = ((True, None, None), (False, None, None), (True, 100, None), (False, 50, None),
+                 (True, None, 30.0), (False, 20, 50.0))
+_F32_TC_CASES = [
+    (2 if s < 1000 else 1, s, 4, (1, 2)[(i + hd // 64) % 2], hd,
+     *_F32_TC_MASKS[(i + hd // 64) % len(_F32_TC_MASKS)], (i + hd // 64) % 3 == 0)
+    for i, s in enumerate(_F32_TC_SEQS) for hd in (64, 128)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,s,h,hkv,hd,causal,window,cap", [
-    (2, 200, 4, 2, 64, True, None, None),
-    (1, 333, 4, 4, 128, True, 64, None),
-    (1, 256, 2, 1, 256, True, 100, 50.0),
-    (2, 130, 4, 4, 64, False, None, None),
-    (1, 190, 4, 2, 128, False, 30, None),
-    (1, 1, 2, 2, 64, True, None, None),
-    (2, 196, 6, 6, 64, False, None, None),        # a ViT encoder block's attention
-    (2, 600, 16, 16, 128, True, None, None),      # moonshot-v1-16b-a3b's heads, group 1
-])
-def test_cuda_flash_matches_plain(card, dtype, b, s, h, hkv, hd, causal, window, cap):
+@pytest.mark.parametrize("b,s,h,hkv,hd,causal,window,cap,fused", [
+    (2, 200, 4, 2, 64, True, None, None, False),
+    (1, 333, 4, 4, 128, True, 64, None, False),
+    (1, 256, 2, 1, 256, True, 100, 50.0, False),
+    (2, 130, 4, 4, 64, False, None, None, False),
+    (1, 190, 4, 2, 128, False, 30, None, False),
+    (1, 1, 2, 2, 64, True, None, None, False),
+    (2, 196, 6, 6, 64, False, None, None, False),        # a ViT encoder block's attention
+    (2, 600, 16, 16, 128, True, None, None, False),      # moonshot-v1-16b-a3b's heads, group 1
+] + _F32_TC_CASES)
+def test_cuda_flash_matches_plain(card, dtype, b, s, h, hkv, hd, causal, window, cap, fused):
+    """The kernel of fwd_route's route against the plain version (f32 at
+    2e-5, bf16 at 2e-2); in f32 also two calls bit-equal and the base-2
+    log-sum-exp against ref.flash_attention_lse, which the f32 backward
+    reads."""
     dt = _TORCH[dtype]
-    q = torch.from_numpy(_normal((b, s, h, hd), 1)).to(card, dt)
-    k = torch.from_numpy(_normal((b, s, hkv, hd), 2)).to(card, dt)
-    v = torch.from_numpy(_normal((b, s, hkv, hd), 3)).to(card, dt)
-    out = tfk.flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=cap)
+    if fused:
+        qkv = torch.from_numpy(_normal((b, s, h + 2 * hkv, hd), 1)).to(card, dt)
+        q, k, v = qkv[:, :, :h], qkv[:, :, h:h + hkv], qkv[:, :, h + hkv:]
+        assert not q.is_contiguous()
+    else:
+        q = torch.from_numpy(_normal((b, s, h, hd), 1)).to(card, dt)
+        k = torch.from_numpy(_normal((b, s, hkv, hd), 2)).to(card, dt)
+        v = torch.from_numpy(_normal((b, s, hkv, hd), 3)).to(card, dt)
+    mask = dict(causal=causal, window=window, softcap=cap)
+    route = tfk.fwd_route(hd, dt)[0]
+    before = dict(tfk.fwd_routes)
+    out, lse = tfk.flash_attention_cuda(q, k, v, lse=True, **mask)
+    assert tfk.fwd_routes[route] == before[route] + 1
     rep = h // hkv
-    exp = tref.flash_attention(q, tops.repeat_kv(k, rep), tops.repeat_kv(v, rep),
-                               causal=causal, window=window, softcap=cap)
+    exp, exp_lse = tref.flash_attention_lse(q, tops.repeat_kv(k, rep), tops.repeat_kv(v, rep),
+                                            **mask)
     tol = 2e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
+    if dtype == "float32":
+        torch.testing.assert_close(lse, exp_lse, atol=tol, rtol=tol)
+        again, lse_again = tfk.flash_attention_cuda(q, k, v, lse=True, **mask)
+        assert torch.equal(again, out) and torch.equal(lse_again, lse)
+        assert route == ("3xtf32" if hd in (64, 128) else "fma")
+
+
+@pytest.mark.cuda
+def test_cuda_flash_fwd_route_matches_the_kernel(card):
+    """fwd_route against the C side's flash_attention_fwd_route, for every
+    (dtype, head dim) either takes; both refuse the rest."""
+    import ctypes
+    lib = _build.load("flash_attention", tfk._SIGNATURES)
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    for dt, code in codes.items():
+        for hd in (16, 32, 48, 64, 96, 128, 256):
+            got = [ctypes.c_int() for _ in range(5)]
+            rc = lib.flash_attention_fwd_route(code, hd, *(ctypes.byref(x) for x in got))
+            try:
+                want = tfk.fwd_route(hd, dt)
+            except ValueError:
+                assert rc == -1, (dt, hd)
+                continue
+            assert rc == 0
+            assert (tfk.FWD_ROUTES[got[0].value], *(x.value for x in got[1:])) == want, (dt, hd)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_tf32_launch_shares_rows_evenly(card):
+    """The split-TF32 route's grid, from the C side's launcher: S's rows
+    shared out over the fewest blocks of at most fwd_route's consumer warps,
+    less than a warp's rows of padding a block; the ViT's S = 196 at hd 64
+    is one block of 7 warps of 32 rows."""
+    import ctypes
+    lib = _build.load("flash_attention", tfk._SIGNATURES)
+    blocks, warps = ctypes.c_int(), ctypes.c_int()
+    for hd in tfk.TF32_HEAD_DIMS:
+        _, bm, _, threads, _ = tfk.fwd_route(hd, torch.float32)
+        consumers = threads // 32 - 1   # and a producer
+        rows = bm // consumers
+        for s in (1, 15, 16, 17, 63, 64, 65, 196, 1000, 4096):
+            assert lib.flash_attention_tf32_launch(hd, s, ctypes.byref(blocks),
+                                                   ctypes.byref(warps)) == 0
+            assert 1 <= warps.value <= consumers, (hd, s)
+            assert 0 <= blocks.value * warps.value * rows - s < rows * blocks.value, (hd, s)
+            assert blocks.value == -(-s // (rows * consumers)), (hd, s)
+    lib.flash_attention_tf32_launch(64, 196, ctypes.byref(blocks), ctypes.byref(warps))
+    assert (blocks.value, warps.value) == (1, 7)
+    assert lib.flash_attention_tf32_launch(256, 196, ctypes.byref(blocks),
+                                           ctypes.byref(warps)) == -1
 
 
 def _flash_check(q, k, v, causal, window, cap):

@@ -10,6 +10,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,7 +22,9 @@ from repro.kernels.decode_attention import decode_attention_pallas
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.int8_transfer import dequantize_int8_pallas, quantize_int8_pallas
 from repro.kernels.ssd_scan import ssd_scan_pallas
+from repro.models import vision as jv
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked
+from repro_torch import convert
 from repro_torch.kernels import decode_attention as tdk
 from repro_torch.kernels import flash_attention as tfk
 from repro_torch.kernels import int8_transfer as tik
@@ -30,6 +33,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd_scan as tsk
 from repro_torch.models import ssm as tssm
+from repro_torch.models import vision as tv
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -313,6 +317,33 @@ _FLASH_BWD_TAKES = ([("bfloat16", hd) for hd in tfk.HEAD_DIMS]
 
 
 @pytest.mark.parametrize("dtype,hd", _FLASH_BWD_TAKES)
+def test_flash_fwd_route_fits_the_card(dtype, hd):
+    """The forward's route is fixed by (dtype, head dim): wgmma for bf16,
+    split TF32 for f32 at 64 and 128, FMA for f32 at 16, 32 and 256; every
+    route's largest block fits in a block's shared memory."""
+    route, bm, bn, threads, smem = tfk.fwd_route(hd, _TORCH[dtype])
+    assert route == {"bfloat16": "wgmma",
+                     "float32": "3xtf32" if hd in (64, 128) else "fma"}[dtype]
+    assert route in tfk.FWD_ROUTES and threads % 32 == 0 and threads <= 1024
+    assert 0 < smem <= tfk.SMEM_LIMIT == 232_448
+    if route == "wgmma":
+        assert (bm, bn, smem) == tuple(tfk.tile_config(hd)[i] for i in (0, 1, 3))
+        assert threads == 3 * 128
+    elif route == "3xtf32":
+        rows, consumers = 16 * tfk.TF32_STRIPS[hd], threads // 32 - 1  # and a producer
+        assert bm == rows * consumers and bn * hd == tfk.TF32_TILE and bn % 16 == 0
+    else:
+        assert (bm, bn, threads) == (32, 32, 128)
+
+
+@pytest.mark.parametrize("dtype,hd", [("bfloat16", 16), ("bfloat16", 32), ("float32", 48),
+                                      ("bfloat16", 96), ("float32", 512)])
+def test_flash_fwd_route_refuses_other_head_dims(dtype, hd):
+    with pytest.raises(ValueError, match="head_dim"):
+        tfk.fwd_route(hd, _TORCH[dtype])
+
+
+@pytest.mark.parametrize("dtype,hd", _FLASH_BWD_TAKES)
 def test_flash_bwd_tile_config_fits_the_card(dtype, hd):
     """The backward's route is fixed by (dtype, head dim): wgmma at bf16 64
     and 128, mma.sync at bf16 256, FMA for f32. On the wgmma route both
@@ -488,6 +519,99 @@ def test_ssd_slow_decay_needs_split_bf16_operands(split):
     close = all(torch.allclose(got, want, atol=2e-3, rtol=2e-3)
                 for got, want in ((y, ye), (st, ste)))
     assert close == split
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to TF32 as the split-TF32 flash route rounds: to nearest,
+    ties away from zero, by adding half of the 13 dropped bits' range to the
+    bit pattern and clearing them."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(eq: str, a: torch.Tensor, b: torch.Tensor, split: bool) -> torch.Tensor:
+    """The f32 sum of the TF32 products the route issues for one product:
+    hi.lo + lo.hi + hi.hi of hi = tf32(x), lo = tf32(x - hi) (``split``),
+    or hi.hi alone (one TF32 pass)."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = torch.einsum(eq, ah, bh)
+    if split:
+        al, bl = _tf32(a - ah), _tf32(b - bh)
+        out = torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh) + out
+    return out
+
+
+def _flash_tf32_rounded(q, k, v, causal, window, softcap, split):
+    """The split-TF32 route's arithmetic on the CPU: Q.K^T and P.V from
+    TF32-rounded operands, the softmax exact in f32, as in ref.py."""
+    s, hd = q.shape[1], q.shape[3]
+    scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
+    scores = _tf32_product("bqhd,bkhd->bhqk", q, k, split) * scale
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    qpos, kpos = torch.arange(s)[:, None], torch.arange(s)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window - 1
+    probs = torch.softmax(scores.masked_fill(~mask, -1e30), dim=-1)
+    return _tf32_product("bhqk,bkhd->bqhd", probs, v, split)
+
+
+@pytest.mark.parametrize("split", [True, False])
+def test_flash_f32_route_needs_split_tf32_operands(split):
+    """At a ViT block's shape (2, 196, 6 heads of 64, non-causal), the
+    split-TF32 route's rounding holds the JAX reference to the f32
+    tolerance, 2e-5; one TF32 pass (10 bits of each operand) does not."""
+    qn, kn, vn = (_normal((2, 196, 6, 64), i) for i in (60, 61, 62))
+    out = _flash_tf32_rounded(*(torch.from_numpy(a) for a in (qn, kn, vn)), False, None, None,
+                              split)
+    exp = np.asarray(jref.flash_attention(*(jnp.asarray(a) for a in (qn, kn, vn)),
+                                          causal=False))
+    close = np.allclose(_np(out), exp, atol=2e-5, rtol=2e-5)
+    assert close == split, float(np.abs(_np(out) - exp).max())
+
+
+@pytest.mark.parametrize("causal,window,cap", [(True, None, None), (True, 50, 30.0),
+                                               (False, 20, None)])
+def test_flash_f32_split_tf32_holds_every_mask(causal, window, cap):
+    """The split holds the tolerance with the masks and the soft-cap too (at
+    the f32 hd 128 case's heads, S off the tiles)."""
+    qn, kn, vn = (_normal((1, 200, 4, 128), i) for i in (63, 64, 65))
+    out = _flash_tf32_rounded(*(torch.from_numpy(a) for a in (qn, kn, vn)), causal, window,
+                              cap, True)
+    exp = jref.flash_attention(*(jnp.asarray(a) for a in (qn, kn, vn)), causal=causal,
+                               window=window, softcap=cap)
+    np.testing.assert_allclose(_np(out), np.asarray(exp), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("split", [True, False])
+def test_flash_f32_route_on_a_real_vit_block(split, monkeypatch):
+    """The same on the q, k and v of a full-width ViT block (the port's
+    tiny_transformer_encoder with the JAX init's weights, two numpy images):
+    the split holds 2e-5 against the JAX reference, one TF32 pass does not."""
+    jvm = jv.PAPER_MODELS["transformer"](n_layers=1)
+    tvm = tv.tiny_transformer_encoder(n_layers=1, device="cpu")
+    convert.vision_params_from_jax(tvm, jvm.init(jax.random.PRNGKey(0)))
+    seen = []
+    plain = tops.flash_attention
+
+    def capture(q, k, v, **kw):
+        seen.append((q.detach().clone(), k.detach().clone(), v.detach().clone(), kw))
+        return plain(q, k, v, **kw)
+
+    monkeypatch.setattr(tops, "flash_attention", capture)
+    images = np.random.default_rng(66).standard_normal((2, 224, 224, 3)).astype(np.float32)
+    with torch.no_grad():
+        tvm.apply_range(torch.from_numpy(images), 0, 2)
+    ((q, k, v, kw),) = seen
+    assert q.shape == (2, 196, 6, 64) and kw == {"causal": False}
+    out = _flash_tf32_rounded(q, k, v, False, None, None, split)
+    exp = np.asarray(jref.flash_attention(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                                          causal=False))
+    close = np.allclose(_np(out), exp, atol=2e-5, rtol=2e-5)
+    assert close == split, float(np.abs(_np(out) - exp).max())
 
 
 def _ssd_inputs(b, s, h, p, n, seed=50):
