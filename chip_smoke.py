@@ -68,6 +68,17 @@ three paths at full width:
   operations on the CUDA cores and SDPA, on a row of its own in the kernels
   line (``flash_attention_vit``) that takes the vision path's flash
   launches.
+* The paper's runtime (``repro_torch.cos``): for each of the four models an
+  epoch of 4 objects of 1,000 seeded images through ``HapiClient`` (train
+  batch 2,000, ``compress_transfer``, a 1 Gbps link) and ``HapiServer`` (one
+  accelerator, Eq. 4 per round) with ``make_vision_executor`` on the card;
+  the driver's ``train_fn`` dequantizes each response on the card and runs
+  the suffix to a loss. Responses arrive in object order, equal to direct
+  executor calls; the wire equals the int8 formula; quantize, flash
+  (3xtf32) and dequantize launches are exact. It prints the wall time (per
+  epoch, per object, images/s), Eq. 4's COS batches, the virtual epoch time
+  beside a timing-only ``BaselineClient`` epoch, and per request the
+  compute the simulator charged beside the card's wall time.
 
 Weights are random, from seeded ``torch.Generator``s. Exits non-zero on any
 failure, and without a GPU. It prints each phase's wall time. Its last lines
@@ -104,7 +115,10 @@ from repro_torch.core.splitter import choose_split  # noqa: E402
 from repro_torch.core.tier_split import (  # noqa: E402
     largest_divisor_leq, make_extract_fn, make_tune_loss_fn, make_vision_executor, plan_tiers,
     wire_bytes)
+from repro_torch.cos.client import BaselineClient, HapiClient  # noqa: E402
+from repro_torch.cos.clock import Link, Simulator  # noqa: E402
 from repro_torch.cos.objectstore import ObjectStore  # noqa: E402
+from repro_torch.cos.server import HapiServer  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import int8_transfer, ssd_scan  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
@@ -300,6 +314,15 @@ VISION_REQUESTS = 2
 # products' sums differs (about 1e-6); a wrong padding or layout gives near 1.
 VISION_TOL = 1e-4
 VISION_FIG3 = ("alexnet", "resnet18")   # per-layer times, the paper's Fig. 3
+# The paper's runtime serving an epoch: 4 objects of 1,000 images through
+# HapiClient -> HapiServer (one accelerator) -> make_vision_executor on the
+# card, at a train batch of 2,000 (two POSTs an iteration, two iterations).
+# Objects are charged the paper's ~110 KB an image on the wire (ImageNet
+# JPEGs, as put_synthetic_dataset charges them); the payload is f32 pixels.
+EPOCH_OBJECTS = 4
+EPOCH_TRAIN_BATCH = 2000
+EPOCH_IMG_BYTES = 110_000
+EPOCH_SUFFIX_CHUNK = 200    # the compute tier's suffix forward, images a call
 
 
 def log(msg: str) -> None:
@@ -452,13 +475,27 @@ def check_int8() -> dict:
     n4 = q4.numel()
     db, dby = bound(n4 * (1 + 2) + s4.numel() * 4, n4, HW.peak_flops_f32)
     got, exp = dequantize_int8_cuda(q4, s4), ref.dequantize_int8(q4, s4)
+    # One PyTorch call of the same function: the f32 product of the codes and
+    # their tile's scale, cast to bf16 on the way out (ref.dequantize_int8's
+    # arithmetic, without its intermediate f32 tensor).
+    lib_out = torch.empty_like(got)
+    tile = q4.shape[-1] // s4.shape[-1]
+    lead = (*q4.shape[:-1], s4.shape[-1], tile)
+
+    def library():
+        torch.mul(q4.view(lead), s4.unsqueeze(-1), out=lib_out.view(lead))
+
+    library()
+    check(torch.equal(lib_out, exp), "the library dequantize differs from the plain version")
     dequant = dict(max_abs_err=float((got.float() - exp.float()).abs().max()),
                    ms=device_ms(lambda: dequantize_int8_cuda(q4, s4), 20),
                    plain_ms=time_ms(lambda: ref.dequantize_int8(q4, s4), 10),
-                   bound_ms=db, bound_by=dby, library_ms=None)
+                   bound_ms=db, bound_by=dby, library_ms=device_ms(library, 20))
     for name, r in (("quantize_int8 (8192 x 5120 bf16)", quant),
                     ("dequantize_int8 (16384 x 5120 -> bf16)", dequant)):
-        log(f"{name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        lib = "" if r["library_ms"] is None else \
+            f", library (torch.mul into bf16, equal to the plain version) {r['library_ms']:.4f} ms"
+        log(f"{name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{lib}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return {"quantize_int8": quant, "dequantize_int8": dequant}
 
@@ -1795,6 +1832,150 @@ def vision(smi: str) -> tuple:
     return total, vit_row
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: an epoch through the port's HAPI runtime
+# ---------------------------------------------------------------------------
+def epoch_model(name: str, images: np.ndarray, labels: np.ndarray, smi: str) -> dict:
+    """One epoch of ``name`` through HapiClient -> HapiServer ->
+    make_vision_executor on the card -> wire -> the driver's train_fn, which
+    dequantizes each response on the card and runs the suffix to a loss
+    without gradients; checks order, wire and launches, and returns the
+    launches of the epoch."""
+    vm = PAPER_MODELS[name](device="cuda", generator=torch.Generator().manual_seed(0))
+    prof = profile_layered(vm)
+    n_layers = len(vm.layer_names)
+    sim = Simulator(seed=0)
+    store = ObjectStore().attach_sim(sim)
+    names = store.put_dataset("imagenet", {"x": images, "y": labels},
+                              object_size=VISION_OBJECT)
+    for oname in names:
+        store.objects[oname].nbytes = store.objects[oname].n_samples * EPOCH_IMG_BYTES
+    server = HapiServer(store, n_accelerators=1, sim=sim)
+    execute = make_vision_executor(vm, compress=True)
+    calls = []                  # (cos_batch, card wall s) of each executor call
+
+    def timed(payload, split, cos_batch):
+        t0 = time.perf_counter()
+        out = execute(payload, split, cos_batch)
+        calls.append((cos_batch, time.perf_counter() - t0))
+        return out
+
+    server.register_executor(name, timed)
+    received, losses = [], []
+
+    def train_fn(acts):
+        """The compute tier: each response's wire to the card, dequantized
+        by the kernel, the suffix [split, end) forward and the loss."""
+        with torch.no_grad():
+            for q, scales in acts:
+                y = torch.from_numpy(store.objects[names[len(received)]].payload["y"]).cuda()
+                received.append((q, scales))
+                x = ops.dequantize_int8(torch.from_numpy(q).cuda(),
+                                        torch.from_numpy(scales).cuda(), torch.float32)
+                loss = sum(torch.nn.functional.cross_entropy(
+                    vm.apply_range(x[i:i + EPOCH_SUFFIX_CHUNK], split, n_layers),
+                    y[i:i + EPOCH_SUFFIX_CHUNK], reduction="sum")
+                    for i in range(0, len(x), EPOCH_SUFFIX_CHUNK)) / len(x)
+                losses.append(float(loss))
+
+    hapi = HapiConfig(compress_transfer=True)
+    client = HapiClient(server, Link(name="wan0", bandwidth=hapi.network_bandwidth),
+                        prof, hapi, name, train_fn=train_fn)
+    split = client.choose_split_for(EPOCH_TRAIN_BATCH).split_index
+    ops.reset_launch_counts()
+    tf32_before = flash.fwd_routes["3xtf32"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = client.run_epoch("imagenet", EPOCH_TRAIN_BATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = ops.launch_counts()
+    tf32 = flash.fwd_routes["3xtf32"] - tf32_before
+    base = BaselineClient(store, Link(name="wan0-base", bandwidth=hapi.network_bandwidth),
+                          prof).run_epoch("imagenet", EPOCH_TRAIN_BATCH)
+
+    batches = [[a.batch for a in r.assignments] for r in server.adapt_results]
+    reissued = sum(it.reissued for it in res.iterations)
+    n_obj = len(names)
+    log(f"epoch {name}: split {split} {tuple(vm.layer_names[split - 1:split])}, "
+        f"{res.n_iterations} iterations of {EPOCH_TRAIN_BATCH}, COS batches by round "
+        f"{batches}, {reissued} re-issued; {n_obj * VISION_OBJECT} images in "
+        f"{1e3 * wall:.1f} ms ({1e3 * wall / n_obj:.1f} ms an object, "
+        f"{n_obj * VISION_OBJECT / wall:.1f} images/s; {smi}); virtual epoch "
+        f"{res.execution_time!r} s, baseline (raw objects, whole model on the client) "
+        f"{base.execution_time!r} s; wire {res.total_wire_bytes:.0f} bytes "
+        f"(baseline {base.total_wire_bytes:.0f}); losses {[round(x, 4) for x in losses]}")
+    check(not res.oom and res.n_iterations == n_obj * VISION_OBJECT // EPOCH_TRAIN_BATCH,
+          f"{name}: epoch {res}")
+    check(len(calls) == sum(len(b) for b in batches) == n_obj + reissued,
+          f"{name}: {len(calls)} executor calls for rounds {batches}")
+    check([b for b, _ in calls] == [b for r in batches for b in r],
+          f"{name}: the executor's COS batches differ from Eq. 4's")
+    # What the simulator charged each request (compute and model load) beside
+    # the card's wall time of its executor call, in execution order.
+    spans = sim.tracer.by_name("cos.compute")
+    loads = sim.tracer.by_name("model.load")
+    check(len(spans) == len(loads) == len(calls), f"{name}: {len(spans)} compute spans")
+    log(f"epoch {name} per request, charged compute + load s (virtual) / card wall s: "
+        + ", ".join(f"{c.duration:.6g} + {ld.duration:.6g} / {w:.6g}"
+                    for c, ld, (_, w) in zip(spans, loads, calls)))
+
+    # Order and content: the i-th response is object i's, equal to a direct
+    # executor call on it (run after the counts were read).
+    check(len(received) == n_obj and len(losses) == n_obj
+          and all(np.isfinite(losses)), f"{name}: train_fn saw {len(received)} responses")
+    exact, worst = True, 0
+    for oname, (q, scales), (cos_batch, _) in zip(names, received, calls):
+        qd, sd = execute(store.objects[oname].payload, split, cos_batch)
+        same = np.array_equal(q, qd) and np.array_equal(scales, sd)
+        exact &= same
+        if not same:
+            worst = max(worst, int(np.abs(q.astype(np.int32) - qd.astype(np.int32)).max()))
+            check(worst <= 1 and np.allclose(scales, sd, rtol=1e-6, atol=0),
+                  f"{name}: {oname}'s response is not a direct call's")
+    d = received[0][0].shape[-1]
+    rows = received[0][0].size // d
+    want_wire = rows * d + rows * (d // math.gcd(d, 128)) * 4
+    wires = [q.nbytes + s.nbytes for q, s in received]
+    check(wires == [want_wire] * n_obj and res.total_wire_bytes == sum(wires),
+          f"{name}: wire {wires}, total {res.total_wire_bytes}, int8 formula {want_wire}")
+    log(f"epoch {name}: responses in object order, "
+        + ("bit-equal to direct executor calls" if exact
+           else f"within {worst} code step of direct executor calls")
+        + f"; wire {want_wire} bytes a response = the int8 formula, total "
+          f"{res.total_wire_bytes:.0f}")
+
+    mbs = sum(-(-VISION_OBJECT // b) for b, _ in calls)
+    blocks = [isinstance(layer, EncoderBlock) for layer in vm.layers]
+    suffix_calls = n_obj * -(-VISION_OBJECT // EPOCH_SUFFIX_CHUNK)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(quantize_int8=mbs, dequantize_int8=n_obj,
+                flash_attention=sum(blocks[:split]) * mbs + sum(blocks[split:]) * suffix_calls)
+    log(f"epoch {name}: launches {got}, expected {want}, flash on the 3xtf32 route {tf32}")
+    check(got == want and tf32 == want["flash_attention"],
+          f"{name}: launches {got} (3xtf32 {tf32}), expected {want}")
+    return got
+
+
+def epoch(smi: str) -> dict:
+    """The four paper models, each an epoch of 4,000 seeded images (made on
+    the card, one array for all four) through the port's runtime; returns the
+    launches of each kernel over the four epochs."""
+    free()
+    n = EPOCH_OBJECTS * VISION_OBJECT
+    g = torch.Generator(device="cuda").manual_seed(33)
+    images = torch.randn((n, 224, 224, 3), generator=g, device="cuda").cpu().numpy()
+    labels = torch.randint(0, 1000, (n,), generator=g, device="cuda",
+                           dtype=torch.int64).cpu().numpy()
+    total = dict.fromkeys(KERNELS, 0)
+    for name in PAPER_MODELS:
+        free()
+        for k, v in epoch_model(name, images, labels, smi).items():
+            total[k] += v
+    free()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -1829,10 +2010,11 @@ def main() -> int:
     trained_ssm = phase("training_ssm", lambda: train_slice(
         SSM_ARCH, get_config(SSM_ARCH).n_layers, 36, SSM_WIRE_BYTES, SSM_TRAIN_LAUNCHES))
     seen, kernels["flash_attention_vit"] = phase("vision", lambda: vision(smi))
+    epoch_seen = phase("epoch", lambda: epoch(smi))
     launches = {name: pushdown[name] + served[name] + trained[name] + trained_ssm[name]
-                + seen[name] for name in KERNELS}
+                + seen[name] + epoch_seen[name] for name in KERNELS}
     log(f"launches: pushdown {pushdown}, serving {served}, training {trained}, "
-        f"SSM training {trained_ssm}, vision {seen}")
+        f"SSM training {trained_ssm}, vision {seen}, epoch {epoch_seen}")
     log(f"phase wall seconds {phases}; total {time.perf_counter() - t_start:.1f} s")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main paths")
@@ -1843,7 +2025,8 @@ def main() -> int:
                 ("decode_attention", "decode_attention_moonshot",
                  served_by_arch["moonshot-v1-16b-a3b"]["decode_attention"],
                  "moonshot-v1-16b-a3b's decode (4 x 544, 16/16 heads, hd 128, bf16)"),
-                ("flash_attention", "flash_attention_vit", seen["flash_attention"],
+                ("flash_attention", "flash_attention_vit",
+                 seen["flash_attention"] + epoch_seen["flash_attention"],
                  "the ViT's blocks at the COS batch (200 x 196, 6 heads of 64, f32, "
                  "non-causal; route 3xtf32)")]
     main_launches = dict(launches)

@@ -22,7 +22,10 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd_scan as tsk
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.profiler import profile_layered
 from repro_torch.core.tier_split import make_vision_executor
+from repro_torch.cos.objectstore import ObjectStore
+from repro_torch.cos.server import HapiServer, PostRequest, _leaves
 from repro_torch.launch.serve import serve
 from repro_torch.models import layers as tl
 from repro_torch.models import vision as tv
@@ -915,6 +918,56 @@ def test_cuda_vision_executor_matches_the_cpu_port(card, name, split, compress):
     else:
         assert got.dtype == np.float32 and got.shape == want.shape
         assert np.linalg.norm(got - want) <= 1e-4 * np.linalg.norm(want)
+
+
+def _drain_through_executor(name, split, x, device):
+    """The port's HapiServer (one accelerator) draining two POSTs of 4 images
+    each through make_vision_executor on ``device``."""
+    vm = tv.PAPER_MODELS[name](device=device, generator=torch.Generator().manual_seed(0))
+    store = ObjectStore()
+    store.put_dataset("live", {"x": x}, object_size=4)
+    server = HapiServer(store, n_accelerators=1)
+    server.register_executor(name, make_vision_executor(vm, compress=True, device=device))
+    prof = profile_layered(vm)
+    for i, oname in enumerate(store.object_names("live")):
+        server.submit(PostRequest(i, 0, name, split, oname, 4, prof, 0.0, compress=True))
+    return server.drain()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,split", [("alexnet", 3), ("transformer", 11)])
+def test_cuda_hapi_server_drains_through_the_executor(card, name, split):
+    """Two POSTs through the executor on the card, against the same drain on
+    the CPU: codes within one step, scales to 1e-4, and the same requests,
+    COS batches, measured wire bytes and virtual times."""
+    x = _normal((8, 224, 224, 3), 52)
+    tops.reset_launch_counts()
+    got = _drain_through_executor(name, split, x, "cuda")
+    assert tops.launch_counts()["quantize_int8"] == 2
+    want = _drain_through_executor(name, split, x, "cpu")
+    assert len(got) == len(want) == 2
+    for r, w in zip(got, want):
+        assert (r.req_id, r.object_name, r.cos_batch, r.act_bytes, r.started, r.finished) == \
+            (w.req_id, w.object_name, w.cos_batch, w.act_bytes, w.started, w.finished)
+        (q, s), (qe, se) = r.acts, w.acts
+        assert q.dtype == np.int8 and q.shape == qe.shape
+        assert np.abs(q.astype(np.int32) - qe.astype(np.int32)).max() <= 1
+        np.testing.assert_allclose(s, se, rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_server_refuses_an_executor_result_on_the_card(card):
+    """An executor returns host arrays; a tensor on the card fails loudly."""
+    with pytest.raises(TypeError, match="host arrays"):
+        _leaves((np.zeros(3), {"a": torch.zeros(2, device=card)}))
+    store = ObjectStore()
+    store.put_dataset("live", {"x": np.zeros((2, 4), np.float32)}, object_size=2)
+    server = HapiServer(store, n_accelerators=1)
+    server.register_executor("m", lambda payload, split, b: torch.zeros(2, 4, device=card))
+    prof = profile_layered(tv.alexnet(device="meta"))
+    server.submit(PostRequest(0, 0, "m", 3, "live/part-00000", 2, prof, 0.0))
+    with pytest.raises(TypeError, match="host arrays"):
+        server.drain()
 
 
 def _on_grid(t, step):
