@@ -79,6 +79,20 @@ three paths at full width:
   epoch, per object, images/s), Eq. 4's COS batches, the virtual epoch time
   beside a timing-only ``BaselineClient`` epoch, and per request the
   compute the simulator charged beside the card's wall time.
+* The fleet half of the control plane (``repro_torch.api``,
+  ``repro_torch.cos.{fleet,network}``): a ``HapiCluster`` of two replicas
+  (one accelerator each) on one 1 Gbps trunk serves two tenants' concurrent
+  epochs (``run_epochs``) of the same 4,000 images, AlexNet and the ViT,
+  through ``make_vision_executor`` on the card; each tenant's ``train_fn``
+  dequantizes and runs its suffix. Each call's COS batch is Eq. 4's, each
+  tenant's responses arrive in object order equal to direct calls, the wire
+  is the int8 formula, launches are exact, and a rerun on the recorded
+  responses logs the same events (card time never reaches the virtual
+  clock). It prints each replica's served count, each tenant's split,
+  re-splits, virtual job time and bandwidth EWMA, the two epochs' wall time
+  and images/s, and each call's charged compute beside its card wall; then
+  drives ``launch.serve``'s ``--cos-fleet``, ``--network-trunk`` and
+  ``--record``/``--replay`` entry points.
 
 Weights are random, from seeded ``torch.Generator``s. Exits non-zero on any
 failure, and without a GPU. It prints each phase's wall time. Its last lines
@@ -87,9 +101,11 @@ numbers, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
+import io
 import json
 import math
 import platform
@@ -107,6 +123,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.api import HapiCluster, NetworkSpec, TenantSpec  # noqa: E402
 from repro_torch.config import HW, HapiConfig, RunConfig, ShapeConfig, TrainConfig  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.batch_adapt import AdaptRequest, adapt_batches  # noqa: E402
@@ -130,6 +147,7 @@ from repro_torch.kernels.int8_transfer import (  # noqa: E402
     dequantize_int8_cuda, quantize_int8_cuda)
 from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda  # noqa: E402
 from repro_torch.launch.serve import generate, serve  # noqa: E402
+from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.launch.train import run_training  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.models.layers import KVCache, MoE, moe_apply, moe_route  # noqa: E402
@@ -323,6 +341,9 @@ EPOCH_OBJECTS = 4
 EPOCH_TRAIN_BATCH = 2000
 EPOCH_IMG_BYTES = 110_000
 EPOCH_SUFFIX_CHUNK = 200    # the compute tier's suffix forward, images a call
+# Two tenants, one a model, on two replicas over one 1 Gbps trunk (the
+# paper's Sec. 7.7 testbed, cut to two of each): the epoch's objects again.
+FLEET_MODELS = ("alexnet", "transformer")
 
 
 def log(msg: str) -> None:
@@ -1835,6 +1856,44 @@ def vision(smi: str) -> tuple:
 # ---------------------------------------------------------------------------
 # Phase 8: an epoch through the port's HAPI runtime
 # ---------------------------------------------------------------------------
+def suffix_loss(vm, q: np.ndarray, scales: np.ndarray, y: np.ndarray, split: int) -> float:
+    """The compute tier: one response's wire to the card, dequantized by the
+    kernel, the suffix [split, end) forward in chunks and the mean loss,
+    without gradients."""
+    with torch.no_grad():
+        x = ops.dequantize_int8(torch.from_numpy(q).cuda(), torch.from_numpy(scales).cuda(),
+                                torch.float32)
+        y = torch.from_numpy(y).cuda()
+        n_layers = len(vm.layer_names)
+        loss = sum(torch.nn.functional.cross_entropy(
+            vm.apply_range(x[i:i + EPOCH_SUFFIX_CHUNK], split, n_layers),
+            y[i:i + EPOCH_SUFFIX_CHUNK], reduction="sum")
+            for i in range(0, len(x), EPOCH_SUFFIX_CHUNK)) / len(x)
+    return float(loss)
+
+
+def same_response(got: tuple, direct: tuple, what: str) -> int:
+    """``got`` against a direct executor call's ``direct``: bit-equal, or
+    codes within one step with scales to rtol 1e-6 (the card may round a
+    value on a code's edge either way between two calls). Returns the
+    largest code step apart."""
+    (q, scales), (qd, sd) = got, direct
+    if np.array_equal(q, qd) and np.array_equal(scales, sd):
+        return 0
+    worst = int(np.abs(q.astype(np.int32) - qd.astype(np.int32)).max())
+    check(worst <= 1 and np.allclose(scales, sd, rtol=1e-6, atol=0),
+          f"{what}: the response is not a direct call's ({worst} code steps)")
+    return worst
+
+
+def int8_wire(q: np.ndarray) -> int:
+    """Bytes of the int8 wire for codes ``q``: the codes and one f32 scale
+    a row and lane tile of gcd(D, 128)."""
+    d = q.shape[-1]
+    rows = q.size // d
+    return rows * d + rows * (d // math.gcd(d, 128)) * 4
+
+
 def epoch_model(name: str, images: np.ndarray, labels: np.ndarray, smi: str) -> dict:
     """One epoch of ``name`` through HapiClient -> HapiServer ->
     make_vision_executor on the card -> wire -> the driver's train_fn, which
@@ -1843,7 +1902,6 @@ def epoch_model(name: str, images: np.ndarray, labels: np.ndarray, smi: str) -> 
     launches of the epoch."""
     vm = PAPER_MODELS[name](device="cuda", generator=torch.Generator().manual_seed(0))
     prof = profile_layered(vm)
-    n_layers = len(vm.layer_names)
     sim = Simulator(seed=0)
     store = ObjectStore().attach_sim(sim)
     names = store.put_dataset("imagenet", {"x": images, "y": labels},
@@ -1864,19 +1922,10 @@ def epoch_model(name: str, images: np.ndarray, labels: np.ndarray, smi: str) -> 
     received, losses = [], []
 
     def train_fn(acts):
-        """The compute tier: each response's wire to the card, dequantized
-        by the kernel, the suffix [split, end) forward and the loss."""
-        with torch.no_grad():
-            for q, scales in acts:
-                y = torch.from_numpy(store.objects[names[len(received)]].payload["y"]).cuda()
-                received.append((q, scales))
-                x = ops.dequantize_int8(torch.from_numpy(q).cuda(),
-                                        torch.from_numpy(scales).cuda(), torch.float32)
-                loss = sum(torch.nn.functional.cross_entropy(
-                    vm.apply_range(x[i:i + EPOCH_SUFFIX_CHUNK], split, n_layers),
-                    y[i:i + EPOCH_SUFFIX_CHUNK], reduction="sum")
-                    for i in range(0, len(x), EPOCH_SUFFIX_CHUNK)) / len(x)
-                losses.append(float(loss))
+        for q, scales in acts:
+            y = store.objects[names[len(received)]].payload["y"]
+            received.append((q, scales))
+            losses.append(suffix_loss(vm, q, scales, y, split))
 
     hapi = HapiConfig(compress_transfer=True)
     client = HapiClient(server, Link(name="wan0", bandwidth=hapi.network_bandwidth),
@@ -1924,18 +1973,11 @@ def epoch_model(name: str, images: np.ndarray, labels: np.ndarray, smi: str) -> 
     # executor call on it (run after the counts were read).
     check(len(received) == n_obj and len(losses) == n_obj
           and all(np.isfinite(losses)), f"{name}: train_fn saw {len(received)} responses")
-    exact, worst = True, 0
-    for oname, (q, scales), (cos_batch, _) in zip(names, received, calls):
-        qd, sd = execute(store.objects[oname].payload, split, cos_batch)
-        same = np.array_equal(q, qd) and np.array_equal(scales, sd)
-        exact &= same
-        if not same:
-            worst = max(worst, int(np.abs(q.astype(np.int32) - qd.astype(np.int32)).max()))
-            check(worst <= 1 and np.allclose(scales, sd, rtol=1e-6, atol=0),
-                  f"{name}: {oname}'s response is not a direct call's")
-    d = received[0][0].shape[-1]
-    rows = received[0][0].size // d
-    want_wire = rows * d + rows * (d // math.gcd(d, 128)) * 4
+    worst = max(same_response(got_r, execute(store.objects[oname].payload, split, cos_batch),
+                              f"{name}: {oname}")
+                for oname, got_r, (cos_batch, _) in zip(names, received, calls))
+    exact = worst == 0
+    want_wire = int8_wire(received[0][0])
     wires = [q.nbytes + s.nbytes for q, s in received]
     check(wires == [want_wire] * n_obj and res.total_wire_bytes == sum(wires),
           f"{name}: wire {wires}, total {res.total_wire_bytes}, int8 formula {want_wire}")
@@ -1957,10 +1999,10 @@ def epoch_model(name: str, images: np.ndarray, labels: np.ndarray, smi: str) -> 
     return got
 
 
-def epoch(smi: str) -> dict:
+def epoch(smi: str) -> tuple:
     """The four paper models, each an epoch of 4,000 seeded images (made on
     the card, one array for all four) through the port's runtime; returns the
-    launches of each kernel over the four epochs."""
+    launches of each kernel over the four epochs, and the images and labels."""
     free()
     n = EPOCH_OBJECTS * VISION_OBJECT
     g = torch.Generator(device="cuda").manual_seed(33)
@@ -1973,7 +2015,202 @@ def epoch(smi: str) -> dict:
         for k, v in epoch_model(name, images, labels, smi).items():
             total[k] += v
     free()
-    return total
+    return total, images, labels
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: two replicas serving two tenants over a shared trunk
+# ---------------------------------------------------------------------------
+def fleet_cluster(images: np.ndarray, labels: np.ndarray, executors: dict,
+                  train_fns: dict) -> tuple:
+    """The port's HapiCluster: two HapiServer replicas of one accelerator at
+    the H100's figures on one 1 Gbps trunk, the epoch's objects (charged 110
+    KB an image on the wire), ``executors`` registered fleet-wide, and one
+    tenant a model (``compress_transfer``, each with its ``train_fn``).
+    Returns the cluster and the tenants' handles."""
+    c = (HapiCluster(seed=0).with_servers(2, n_accelerators=1)
+         .with_network(NetworkSpec(trunk_bandwidth=1e9 / 8))
+         .with_dataset("imagenet", {"x": images, "y": labels}, object_size=VISION_OBJECT))
+    for name, fn in executors.items():
+        c.with_executor(name, fn)
+    for obj in c.store.objects.values():
+        obj.nbytes = obj.n_samples * EPOCH_IMG_BYTES
+    hapi = HapiConfig(compress_transfer=True)
+    handles = [c.tenant(TenantSpec(model=name, hapi=hapi, train_fn=train_fns[name]))
+               for name in FLEET_MODELS]
+    return c, handles
+
+
+def fleet(smi: str, images: np.ndarray, labels: np.ndarray) -> dict:
+    """Tenant 0 (AlexNet) and tenant 1 (the ViT) run their epochs of the
+    epoch phase's 4,000 images concurrently (``run_epochs``) against two
+    replicas that serve through make_vision_executor on the card; each
+    tenant's train_fn dequantizes each response and runs its suffix to a
+    loss. Checks the epochs, Eq. 4's COS batches, object order, the wire and
+    the launches, then reruns the same cluster with executors that return
+    the recorded responses: its event log must equal the live run's, so no
+    card time reaches the virtual clock. Then the serving driver's fleet
+    entry points. Returns the launches of the live run."""
+    free()
+    models = {name: PAPER_MODELS[name](device="cuda", generator=torch.Generator().manual_seed(0))
+              for name in FLEET_MODELS}
+    direct = {name: make_vision_executor(vm, compress=True) for name, vm in models.items()}
+    # (model, split, cos_batch, card wall s, response, object's images) in call order
+    calls = []
+
+    def timed(name):
+        def run(payload, split, cos_batch):
+            t0 = time.perf_counter()
+            out = direct[name](payload, split, cos_batch)
+            calls.append((name, split, cos_batch, time.perf_counter() - t0, out, payload["x"]))
+            return out
+        return run
+
+    received = {name: [] for name in FLEET_MODELS}
+    losses = {name: [] for name in FLEET_MODELS}
+    handles = {}
+
+    def train_fn(name):
+        def run(acts):
+            split = handles[name].client.decision.split_index
+            for q, scales in acts:
+                y = labels[len(received[name]) * VISION_OBJECT:][:VISION_OBJECT]
+                received[name].append((q, scales))
+                losses[name].append(suffix_loss(models[name], q, scales, y, split))
+        return run
+
+    c, hs = fleet_cluster(images, labels, {n: timed(n) for n in FLEET_MODELS},
+                          {n: train_fn(n) for n in FLEET_MODELS})
+    handles.update(zip(FLEET_MODELS, hs))
+    names = c.store.object_names("imagenet")
+    ops.reset_launch_counts()
+    tf32_before = flash.fwd_routes["3xtf32"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = c.run_epochs([(h, "imagenet", EPOCH_TRAIN_BATCH) for h in hs])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = ops.launch_counts()
+    tf32 = flash.fwd_routes["3xtf32"] - tf32_before
+
+    n_obj = len(names)
+    report = c.report()
+    log(f"fleet: 2 replicas, 1 Gbps trunk, tenants {list(FLEET_MODELS)}; served by replica "
+        f"{report.served_by_server}, makespan {report.makespan!r} s (virtual), "
+        f"{report.reissued} re-issued; both epochs {2 * n_obj * VISION_OBJECT} images in "
+        f"{1e3 * wall:.1f} ms ({2 * n_obj * VISION_OBJECT / wall:.1f} images/s; {smi})")
+    for name, h, res in zip(FLEET_MODELS, hs, results):
+        bw = h.client.observed_bw
+        log(f"fleet tenant {h.tenant_id} ({name}): split {res.split}, re-splits "
+            f"{res.resplits}, {res.n_iterations} iterations, virtual job time "
+            f"{res.execution_time!r} s, observed_bw EWMA "
+            f"{'none' if bw is None else f'{bw:.6g} B/s'}, wire {res.total_wire_bytes:.0f} "
+            f"bytes, losses {[round(x, 4) for x in losses[name]]}")
+        check(not res.oom and res.n_iterations == n_obj * VISION_OBJECT // EPOCH_TRAIN_BATCH,
+              f"fleet {name}: epoch {res}")
+    check(len(set(report.served_by_server)) == 2 and all(report.served_by_server.values()),
+          f"fleet: both replicas must serve, {report.served_by_server}")
+
+    # Eq. 4's COS batch of each request, against the executor's calls: the
+    # compute spans run in call order, each under its request's root span.
+    assigned = {}
+    for r in c.fleet.adapt_results:
+        for a in r.assignments:
+            check(a.req_id not in assigned, f"fleet: request {a.req_id} assigned twice")
+            assigned[a.req_id] = a.batch
+    by_span = {req.span_id: req for req in c.fleet._req_by_id.values()}
+    spans = c.tracer.by_name("cos.compute")
+    loads = {sp.parent_id: sp for sp in c.tracer.by_name("model.load")}
+    check(len(spans) == len(calls), f"fleet: {len(spans)} compute spans, {len(calls)} calls")
+    for sp, (name, split, cos_batch, *_) in zip(spans, calls):
+        req = by_span[sp.parent_id]
+        labels_of = dict(sp.labels)
+        check((req.model_key, req.split, assigned[req.req_id]) == (name, split, cos_batch)
+              and labels_of["batch"] == str(cos_batch),
+              f"fleet: call ({name}, {split}, {cos_batch}) against request {req.req_id} "
+              f"({req.model_key}, {req.split}), Eq. 4's batch {assigned[req.req_id]}")
+    log(f"fleet per call, model: charged compute + load s (virtual) / card wall s: "
+        + ", ".join(f"{name} {sp.duration:.6g} + "
+                    f"{loads[sp.parent_id].duration if sp.parent_id in loads else 0.0:.6g} "
+                    f"/ {w:.6g}" for sp, (name, _, _, w, *_) in zip(spans, calls)))
+
+    # Each tenant's responses: in object order, each a direct call's on its
+    # object at the split and COS batch of the call that served it, the int8
+    # wire.
+    worst = 0
+    for name, h, res in zip(FLEET_MODELS, hs, results):
+        got_r = received[name]
+        check(len(got_r) == n_obj and len(losses[name]) == n_obj
+              and all(np.isfinite(losses[name])), f"fleet {name}: {len(got_r)} responses")
+        for oname, resp in zip(names, got_r):
+            payload = c.store.objects[oname].payload
+            split, cos_batch = next((sp, b) for n, sp, b, _, _, x in calls
+                                    if n == name and x is payload["x"])
+            worst = max(worst, same_response(resp, direct[name](payload, split, cos_batch),
+                                             f"fleet {name}: {oname}"))
+        wire = int8_wire(got_r[0][0])
+        wires = [q.nbytes + sc.nbytes for q, sc in got_r]
+        check(wires == [wire] * n_obj and res.total_wire_bytes == sum(wires),
+              f"fleet {name}: wire {wires}, int8 formula {wire}")
+    log("fleet: each tenant's responses in object order, "
+        + ("bit-equal to direct executor calls" if worst == 0
+           else f"within {worst} code step of direct executor calls")
+        + "; each wire = the int8 formula")
+
+    # Launches: quantize once a microbatch, dequantize once a response, flash
+    # on the ViT's prefix blocks a microbatch and suffix blocks a chunk.
+    want = dict.fromkeys(KERNELS, 0)
+    want["quantize_int8"] = sum(-(-VISION_OBJECT // b) for _, _, b, *_ in calls)
+    want["dequantize_int8"] = sum(len(v) for v in received.values())
+    for name, res in zip(FLEET_MODELS, results):
+        blocks = [isinstance(layer, EncoderBlock) for layer in models[name].layers]
+        mbs = sum(-(-VISION_OBJECT // b) for n, _, b, *_ in calls if n == name)
+        want["flash_attention"] += (sum(blocks[:res.split]) * mbs + sum(blocks[res.split:])
+                                    * len(received[name]) * -(-VISION_OBJECT
+                                                               // EPOCH_SUFFIX_CHUNK))
+    log(f"fleet: launches {got}, expected {want}, flash on the 3xtf32 route {tf32}")
+    check(got == want and tf32 == want["flash_attention"] > 0,
+          f"fleet: launches {got} (3xtf32 {tf32}), expected {want}")
+
+    # The same cluster with the recorded responses in place of the card.
+    recorded = {name: [out for n, _, _, _, out, _ in calls if n == name]
+                for name in FLEET_MODELS}
+
+    def replay(name):
+        def run(payload, split, cos_batch):
+            return recorded[name].pop(0)
+        return run
+
+    c2, hs2 = fleet_cluster(images, labels, {n: replay(n) for n in FLEET_MODELS},
+                            dict.fromkeys(FLEET_MODELS, lambda acts: None))
+    results2 = c2.run_epochs([(h, "imagenet", EPOCH_TRAIN_BATCH) for h in hs2])
+    check(c2.event_digest() == c.event_digest()
+          and [r.execution_time for r in results2] == [r.execution_time for r in results]
+          and not any(recorded.values()),
+          "fleet: the rerun on recorded responses logs another run: card time leaked into "
+          "virtual time")
+    log(f"fleet: the rerun on the recorded responses gives the same event log "
+        f"({len(c.event_digest())} events) and job times")
+    del c, c2, models, direct, calls, recorded
+    free()
+
+    # The serving driver's fleet half, on the host.
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = str(Path(tmp) / "fleet.jsonl")
+        for argv in (["--cos-fleet", "2", "--tenants", "3"],
+                     ["--cos-fleet", "2", "--tenants", "3", "--network-trunk", "1.0"],
+                     ["--cos-fleet", "2", "--tenants", "3", "--record", trace],
+                     ["--replay", trace]):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                serve_main(argv)
+            text = out.getvalue()
+            log(f"serve {' '.join(argv).replace(tmp, '$TMP')}: "
+                + " | ".join(text.strip().splitlines()).replace(tmp, "$TMP"))
+            check(("replayed 24 requests" if argv[0] == "--replay" else
+                   "3 tenants:" if "--network-trunk" in argv else "served 24 POSTs") in text,
+                  f"serve {argv}: {text!r}")
+    return got
 
 
 def main() -> int:
@@ -2010,11 +2247,13 @@ def main() -> int:
     trained_ssm = phase("training_ssm", lambda: train_slice(
         SSM_ARCH, get_config(SSM_ARCH).n_layers, 36, SSM_WIRE_BYTES, SSM_TRAIN_LAUNCHES))
     seen, kernels["flash_attention_vit"] = phase("vision", lambda: vision(smi))
-    epoch_seen = phase("epoch", lambda: epoch(smi))
+    epoch_seen, images, labels = phase("epoch", lambda: epoch(smi))
+    fleet_seen = phase("fleet", lambda: fleet(smi, images, labels))
+    del images, labels
     launches = {name: pushdown[name] + served[name] + trained[name] + trained_ssm[name]
-                + seen[name] + epoch_seen[name] for name in KERNELS}
+                + seen[name] + epoch_seen[name] + fleet_seen[name] for name in KERNELS}
     log(f"launches: pushdown {pushdown}, serving {served}, training {trained}, "
-        f"SSM training {trained_ssm}, vision {seen}, epoch {epoch_seen}")
+        f"SSM training {trained_ssm}, vision {seen}, epoch {epoch_seen}, fleet {fleet_seen}")
     log(f"phase wall seconds {phases}; total {time.perf_counter() - t_start:.1f} s")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main paths")
@@ -2026,7 +2265,8 @@ def main() -> int:
                  served_by_arch["moonshot-v1-16b-a3b"]["decode_attention"],
                  "moonshot-v1-16b-a3b's decode (4 x 544, 16/16 heads, hd 128, bf16)"),
                 ("flash_attention", "flash_attention_vit",
-                 seen["flash_attention"] + epoch_seen["flash_attention"],
+                 seen["flash_attention"] + epoch_seen["flash_attention"]
+                 + fleet_seen["flash_attention"],
                  "the ViT's blocks at the COS batch (200 x 196, 6 heads of 64, f32, "
                  "non-causal; route 3xtf32)")]
     main_launches = dict(launches)

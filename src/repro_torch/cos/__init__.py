@@ -1,4 +1,4 @@
-"""The port's single-server COS runtime: the simulator clock, the object
-store, the warm-weight cache, the compute scheduler, the server and the
-client (copies of ``repro/cos``; the network fabric and the fleet are not
-ported yet)."""
+"""The port's HAPI runtime: the simulator clock, the object store, the
+warm-weight cache, the compute scheduler, the server, the client, the
+shared network fabric and the multi-replica fleet (copies of
+``repro/cos``)."""

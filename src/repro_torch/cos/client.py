@@ -37,21 +37,6 @@ if TYPE_CHECKING:
     from repro_torch.cos.network import NetworkFabric
 
 
-def _wan_link(tenant: int, bandwidth: float,
-              fabric: Optional["NetworkFabric"], *,
-              name: Optional[str] = None, weight: float = 1.0) -> Link:
-    """A tenant's WAN link, as ``repro.cos.network.wan_link`` builds it: a
-    fabric port when a fabric is given (from ``repro_torch.cos.network``),
-    a private fixed-rate :class:`Link` otherwise (``weight`` only matters
-    on a shared fabric)."""
-    if fabric is not None:
-        from repro_torch.cos.network import wan_link
-
-        return wan_link(tenant, bandwidth, fabric, name=name, weight=weight)
-    return Link(name=name or f"wan{tenant}", bandwidth=bandwidth,
-                latency=1e-3)
-
-
 @dataclass
 class IterationStats:
     iteration: int
@@ -97,7 +82,7 @@ class HapiClient:
 
     ``link=None`` creates the tenant's WAN link from
     ``hapi.network_bandwidth`` — the common case, and what
-    the JAX package's ``HapiCluster.tenant`` relies on. When a shared
+    :meth:`repro_torch.api.HapiCluster.tenant` relies on. When a shared
     :class:`~repro_torch.cos.network.NetworkFabric` is given, the link is a
     fabric port instead: transfers become flows that contend with other
     tenants on the WAN egress trunk. Multi-tenant deployments should be
@@ -136,9 +121,11 @@ class HapiClient:
     ) -> None:
         self.server = server
         if link is None:
-            link = _wan_link(tenant, hapi.network_bandwidth, fabric,
-                             weight=1.0 if network_weight is None
-                             else network_weight)
+            from repro_torch.cos.network import wan_link
+
+            link = wan_link(tenant, hapi.network_bandwidth, fabric,
+                            weight=1.0 if network_weight is None
+                            else network_weight)
         self.link = link
         if network_weight is None:
             network_weight = getattr(link, "weight", 1.0)
@@ -488,8 +475,10 @@ class BaselineClient:
         if link is None:
             bw = bandwidth if bandwidth is not None \
                 else HapiConfig().network_bandwidth
-            link = _wan_link(tenant, bw, fabric, name=f"wan{tenant}-base",
-                             weight=network_weight)
+            from repro_torch.cos.network import wan_link
+
+            link = wan_link(tenant, bw, fabric, name=f"wan{tenant}-base",
+                            weight=network_weight)
         self.link = link
         self.tenant = tenant
         self.profile = profile

@@ -955,6 +955,58 @@ def test_cuda_hapi_server_drains_through_the_executor(card, name, split):
         np.testing.assert_allclose(s, se, rtol=1e-4, atol=0)
 
 
+def _cluster_through_executors(x, device):
+    """The port's HapiCluster, two replicas of one accelerator each on one
+    1 Gbps trunk, draining two tenants' bursts (AlexNet and the ViT, two
+    objects of 4 images each) through make_vision_executor on ``device``."""
+    from repro_torch.api import HapiCluster, NetworkSpec
+    from repro_torch.config import HapiConfig
+
+    c = (HapiCluster(seed=0).with_servers(2, n_accelerators=1)
+         .with_network(NetworkSpec(trunk_bandwidth=1e9 / 8))
+         .with_dataset("live", {"x": x}, object_size=4))
+    for name in ("alexnet", "transformer"):
+        vm = tv.PAPER_MODELS[name](device=device, generator=torch.Generator().manual_seed(0))
+        c.with_executor(name, make_vision_executor(vm, compress=True, device=device))
+    hapi = HapiConfig(compress_transfer=True)
+    # The ViT at the paper's split (11, as Alg. 1 picks at a train batch of
+    # 2,000), so its prefix holds encoder blocks; AlexNet at Alg. 1's.
+    for t, (name, split) in enumerate((("alexnet", None), ("transformer", 11))):
+        c.submit_burst("live", name, tenant=t, train_batch=8, hapi=hapi, b_max=2, split=split)
+    return c, c.drain()
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_drains_two_tenants_through_the_executors(card):
+    """Two replicas serve two tenants' bursts through the executors on the
+    card, against the same cluster on the CPU: codes within one step, scales
+    to 1e-4, and the same replicas, COS batches, act_bytes, virtual times and
+    event digests (card time never reaches the virtual clock)."""
+    x = _normal((8, 224, 224, 3), 53)
+    tops.reset_launch_counts()
+    c, got = _cluster_through_executors(x, "cuda")
+    counts = tops.launch_counts()
+    cw, want = _cluster_through_executors(x, "cpu")
+    assert len(got) == len(want) == 4 and len({r.server_id for r in got}) == 2
+    vit = tv.PAPER_MODELS["transformer"](device="meta")
+    blocks = sum(isinstance(layer, tv.EncoderBlock) for layer in list(vit.layers)[:11])
+    assert blocks > 0
+    assert counts["quantize_int8"] == sum(-(-4 // r.cos_batch) for r in got)
+    assert counts["flash_attention"] == blocks * sum(-(-4 // r.cos_batch) for r in got
+                                                     if r.tenant == 1)
+    assert c.event_digest() == cw.event_digest()
+    assert c.report().as_dict() == cw.report().as_dict()
+    for r, w in zip(got, want):
+        assert (r.req_id, r.tenant, r.server_id, r.object_name, r.cos_batch, r.act_bytes,
+                r.started, r.finished) == \
+            (w.req_id, w.tenant, w.server_id, w.object_name, w.cos_batch, w.act_bytes,
+             w.started, w.finished)
+        (q, s), (qe, se) = r.acts, w.acts
+        assert q.dtype == np.int8 and q.shape == qe.shape
+        assert np.abs(q.astype(np.int32) - qe.astype(np.int32)).max() <= 1
+        np.testing.assert_allclose(s, se, rtol=1e-4, atol=0)
+
+
 @pytest.mark.cuda
 def test_cuda_server_refuses_an_executor_result_on_the_card(card):
     """An executor returns host arrays; a tensor on the card fails loudly."""

@@ -9,11 +9,11 @@ operation for operation.
 
 Two things are carried across so that both packages see the same numbers:
 
-* Profiles, field by field. The port's own ``profile_layered`` equals the
-  reference's only to 1e-12 relative (``tests/test_torch_planner.py``), so a
-  digest comparison feeds the reference's ``LayerProfile`` to both; one test
-  drains on the port's own profile and holds decisions equal and times to
-  1e-12.
+* Profiles, field by field. A digest comparison feeds the reference's
+  ``LayerProfile`` to both; one test drains on the port's own profile and
+  holds decisions equal and times to 1e-12. (The port's own
+  ``profile_layered`` in fact equals the reference's bit for bit, and
+  ``tests/test_torch_fleet.py`` runs the cluster goldens on it.)
 * Hardware constants. The reference's ``HW`` is a TPU v5e, the port's an
   H100. Parity runs pass the v5e's figures to both packages explicitly and
   patch the port server's ``HW`` for the model-load rate (``v5e``).
@@ -741,16 +741,34 @@ def test_baseline_joins_the_sim_and_links_without_a_fabric(ref_profiles):
     assert out[0] == out[1]
 
 
-def test_a_fabric_needs_the_network_module():
-    """The network fabric is not ported yet: passing one fails at the import,
-    and nothing stands in for it."""
-    store = tstore.ObjectStore()
-    prof = t_profile_layered(tv.alexnet(10, device="meta"))
-    with pytest.raises(ImportError, match="repro_torch.cos.network"):
-        tclient.HapiClient(tserver.HapiServer(store), None, prof, tconfig.HapiConfig(),
-                           "alexnet", fabric=object())
-    with pytest.raises(ImportError, match="repro_torch.cos.network"):
-        tclient.BaselineClient(store, None, prof, fabric=object())
+def test_a_fabric_needs_the_network_module(v5e, ref_profiles):
+    """A client, a baseline client and a store given a shared fabric take
+    their links from the port's own ``cos.network`` (imported only then):
+    fabric ports on one trunk, the store's reads batched through it. Their
+    epochs on the shared simulator log what the reference's do."""
+    from repro.cos import network as rnet
+    from repro_torch.cos import network as tnet
+
+    out = []
+    for m, net in ((REF, rnet), (PORT, tnet)):
+        sim = m.clock.Simulator(0)
+        fabric = net.NetworkFabric(net.NetworkSpec(trunk_bandwidth=1e9 / 8), sim=sim)
+        store = _make_store(m, n=2000, sim=sim)
+        store.use_fabric(fabric)
+        prof = _profile(m, ref_profiles["alexnet"])
+        c = _client(m, _server(m, store, sim=sim), None, prof, _hapi(m), "alexnet",
+                    tenant=0, fabric=fabric, network_weight=2.0)
+        b = m.client.BaselineClient(store, None, prof, tenant=1, bandwidth=1e9 / 8,
+                                    fabric=fabric, **CLIENT_HW)
+        assert type(c.link).__module__ == type(b.link).__module__ == net.__name__
+        runs = [c.start_epoch("ds", train_batch=1000, max_iterations=2)]
+        res = net.run_concurrently(runs)
+        base = b.run_epoch("ds", train_batch=1000, max_iterations=1)
+        out.append(([dataclasses.asdict(r) for r in res], dataclasses.asdict(base),
+                    sorted(fabric.ports), fabric.effective_bandwidth(0),
+                    (c.link.name, c.link.weight, b.link.name, b.link.weight),
+                    _sim_record(sim)))
+    assert out[0] == out[1]
 
 
 def test_server_and_client_default_to_the_h100():
@@ -824,7 +842,8 @@ def test_live_epoch_with_the_ports_executor_matches_the_reference(v5e, compress)
 def test_runtime_imports_no_jax_and_nothing_of_repro():
     mods = ["repro_torch.obs", "repro_torch.cos.clock", "repro_torch.cos.objectstore",
             "repro_torch.cos.weightcache", "repro_torch.cos.scheduler",
-            "repro_torch.cos.server", "repro_torch.cos.client"]
+            "repro_torch.cos.server", "repro_torch.cos.client", "repro_torch.cos.network",
+            "repro_torch.cos.fleet", "repro_torch.api", "repro_torch.replay"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
