@@ -94,6 +94,26 @@ three paths at full width:
   drives ``launch.serve``'s ``--cos-fleet``, ``--network-trunk`` and
   ``--record``/``--replay`` entry points.
 
+* The encoder-decoder and VLM families at full width and depth: whisper-small
+  (12 + 12 layers, bf16) agrees card vs CPU at two encoder and two decoder
+  layers (pushdown loss, prefill and decode-step logits, beside mistral in
+  the full-width phases), pushes down three requests of 8 clips x 1,500
+  frames (Alg. 1's split 1, COS batch 4, the int8 boundary) and serves 4 x
+  1,500 frames with 32 greedy tokens (flash non-causal over 1,500 frames in
+  the encoder, decode over the self cache and the 1,500-frame cross cache);
+  llava-next-mistral-7b (32 blocks, 576 patches, bf16) agrees card vs CPU at
+  two blocks, pushes down three requests of 4 x (576 patches + 3,520 tokens)
+  (no Alg. 1 candidate: the freeze index 24, COS batch 2) and serves 4
+  prompts of 512 tokens after the patches through the teacher-forced refill
+  and 32 greedy tokens. Wire bytes equal Alg. 1's and launches are exact.
+  flash at whisper's encoder shape and decode at its cross-attention shape
+  are timed on rows of their own in the kernels line
+  (``flash_attention_whisper``, at the 8-clip batch that runs most of its
+  launches, and ``decode_attention_whisper``); their launches are read from
+  the wrappers' counts by shape and taken out of the main rows. Every flash
+  and decode case is held to its plain version by relative L2 as well as by
+  its max-abs bound.
+
 Weights are random, from seeded ``torch.Generator``s. Exits non-zero on any
 failure, and without a GPU. It prints each phase's wall time. Its last lines
 are the card's name and power limit, one JSON line with every kernel's
@@ -138,6 +158,7 @@ from repro_torch.cos.objectstore import ObjectStore  # noqa: E402
 from repro_torch.cos.server import HapiServer  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import int8_transfer, ssd_scan  # noqa: E402
+from repro_torch.kernels import decode_attention as decode_k  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -162,6 +183,13 @@ BF16_TOL = 2e-2          # tests/test_kernels.py's bf16 tolerance
 F32_TOL = 2e-5           # tests/test_kernels.py's f32 tolerance
 LOSS_TOL = 2e-2          # card vs CPU loss of the 2-block model, bf16 end to end
 DECODE_BF16_TOL = 3e-2   # tests/test_kernels.py's bf16 decode tolerance
+# Every flash and decode case is also held to its plain version by relative
+# L2. The max-abs bounds above are as large as the outputs where a softmax
+# averages over many keys: at whisper's 1,500 frames (scores about N(0, 1))
+# the output's rms is about 0.043, so 2e-2 is half a typical value. bf16
+# rounding gives about 3e-3; dropping the 92 keys past the last full tile of
+# 128 gives about 0.25 (tools/tail_tile_check.py).
+ATTN_REL_TOL = 1e-2
 SSD_TOL = 2e-3           # tests/test_kernels.py's SSD tolerance
 # Card vs CPU, two blocks in bf16 on both: relative L2 error of the logits and
 # of the SSM states. Both devices round to bf16 at the same places, so only
@@ -281,6 +309,15 @@ KERNEL_STEP_TOL = 5e-3
 # launch per attention sublayer of the prefill, an SSD launch per mamba layer.
 # jamba has one attention sublayer in each period of 8: 2 flash launches and
 # 14 SSD launches in the prefill of its 2 periods.
+# whisper-small serves WHISPER_FRAMES frames: a flash launch per encoder and
+# per decoder block in the prefill, no refill (it decodes from the prefill's
+# own cache), and each greedy step a decode launch per decoder block over its
+# self cache and one over its cross cache. llava-next-mistral-7b's prompts
+# are its 576 patches and SERVE_PROMPT tokens; the refill writes the text.
+WHISPER_ARCH = "whisper-small"
+LLAVA_ARCH = "llava-next-mistral-7b"
+WHISPER_FRAMES = 1500       # whisper's 30 s window
+SERVE_PROMPTS = {WHISPER_ARCH: WHISPER_FRAMES}
 SERVE_LAUNCHES = {
     "mistral-nemo-12b": {"flash_attention": 40,
                          "decode_attention": 40 * (SERVE_PROMPT + SERVE_TOKENS)},
@@ -289,7 +326,11 @@ SERVE_LAUNCHES = {
                             "decode_attention": 48 * (SERVE_PROMPT + SERVE_TOKENS)},
     "jamba-v0.1-52b": {"flash_attention": 2, "decode_attention": 2 * (SERVE_PROMPT + SERVE_TOKENS),
                        "ssd_scan": 14},
+    WHISPER_ARCH: {"flash_attention": 12 + 12, "decode_attention": 2 * 12 * SERVE_TOKENS},
+    LLAVA_ARCH: {"flash_attention": 32, "decode_attention": 32 * (SERVE_PROMPT + SERVE_TOKENS)},
 }
+# The serving phase's models; whisper and llava serve in phases of their own.
+SERVED = ("mistral-nemo-12b", "mamba2-1.3b", "moonshot-v1-16b-a3b", "jamba-v0.1-52b")
 # jamba-v0.1-52b is served at its published widths cut to 2 of its 4
 # periods (16 of 32 layers): 52.0 GB of bf16 weights, where all 4 need
 # 102.9 GB, more than one card holds. serve() takes no depth, so the phase
@@ -538,7 +579,18 @@ FLASH_CASES = [
     (1, 190, 4, 4, 32, False, 30, None, torch.float32, F32_TOL),
     (200, 196, 6, 6, 64, False, None, None, torch.float32, F32_TOL),   # a ViT block, COS batch
     (2, 4096, 16, 16, 128, True, None, None, torch.bfloat16, BF16_TOL),  # moonshot's tune, group 1
+    (4, 1500, 12, 12, 64, False, None, None, torch.bfloat16, BF16_TOL),  # whisper's encoder
+    (2, 1536, 12, 12, 64, False, None, None, torch.bfloat16, BF16_TOL),
+    (4, 256, 12, 12, 64, True, None, None, torch.bfloat16, BF16_TOL),    # whisper's decoder
+    (4, 1088, 32, 8, 128, True, None, None, torch.bfloat16, BF16_TOL),   # llava's serving prefill
 ]
+# Whisper's encoder self-attention (S, H, Hkv, hd) and its batches: 4 clips
+# in the extract's microbatches and serving's prefill, 8 in the tune side's
+# suffix, which runs most of the launches and gives flash_attention_whisper's
+# row its times.
+WHISPER_FLASH = (1500, 12, 12, 64)
+WHISPER_FLASH_BATCHES = (4, 8)
+WHISPER_ROW_BATCH = 8
 
 
 def kernel_route(hd: int, dt: torch.dtype) -> str:
@@ -568,9 +620,12 @@ def check_flash() -> dict:
         kr, vr = ops.repeat_kv(k, h // hkv), ops.repeat_kv(v, h // hkv)
         exp = ref.flash_attention(q, kr, vr, causal=causal, window=window, softcap=cap)
         err = float((out.float() - exp.float()).abs().max())
+        rel = rel_err(out, exp)
         torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
         log(f"flash B={b} S={s} H={h} Hkv={hkv} hd={hd} causal={causal} window={window} "
-            f"softcap={cap} {str(dt)[6:]}, route {route}: max abs err {err:.3g} (tol {tol:g})")
+            f"softcap={cap} {str(dt)[6:]}, route {route}: max abs err {err:.3g} (tol {tol:g}), "
+            f"relative L2 {rel:.3g} (tol {ATTN_REL_TOL:g})")
+        check(rel <= ATTN_REL_TOL, f"flash B={b} S={s} hd={hd}: relative L2 {rel}")
         if main is None:
             pairs = live_pairs(s, causal, window)
             fb, fby = bound((2 * b * s * h * hd + 2 * b * s * hkv * hd) * q.element_size(),
@@ -608,7 +663,34 @@ def check_flash() -> dict:
             f"{lib_ms:.4f} ms")
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
-    return {"flash_attention": main}
+    # whisper's encoder: 1,500 frames, non-causal, 12 heads of 64, at both
+    # batches its path runs; the row takes WHISPER_ROW_BATCH's numbers.
+    s, h, hkv, hd = WHISPER_FLASH
+    rows = {}
+    for b in WHISPER_FLASH_BATCHES:
+        q = randn((b, s, h, hd), torch.bfloat16, seed=21)
+        k = randn((b, s, hkv, hd), torch.bfloat16, seed=22)
+        v = randn((b, s, hkv, hd), torch.bfloat16, seed=23)
+        out = flash_attention_cuda(q, k, v, causal=False)
+        exp = ref.flash_attention(q, k, v, causal=False)
+        err, rel = float((out.float() - exp.float()).abs().max()), rel_err(out, exp)
+        check(err <= BF16_TOL and rel <= ATTN_REL_TOL,
+              f"flash at whisper's encoder shape, {b} clips: max abs err {err}, relative L2 {rel}")
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        fb, fby = bound((2 * b * s * h * hd + 2 * b * s * hkv * hd) * 2,
+                        4 * hd * b * h * live_pairs(s, False, None), HW.peak_flops_bf16)
+        r = rows[b] = dict(
+            max_abs_err=err,
+            ms=device_ms(lambda: flash_attention_cuda(q, k, v, causal=False), 20),
+            plain_ms=time_ms(lambda: ref.flash_attention(q, k, v, causal=False), 3, 1),
+            bound_ms=fb, bound_by=fby, library_ms=device_ms(lambda: sdpa(qt, kt, vt), 20))
+        log(f"flash_attention at whisper's encoder shape ({b} x {s}, {h}/{hkv} heads, hd {hd}, "
+            f"non-causal, bf16): {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{fb:.4f} ms ({fby}), scaled_dot_product_attention {r['library_ms']:.4f} ms; "
+            f"max abs err {err:.3g}, relative L2 {rel:.3g}")
+        del q, k, v, qt, kt, vt, out, exp
+        torch.cuda.empty_cache()
+    return {"flash_attention": main, "flash_attention_whisper": rows[WHISPER_ROW_BATCH]}
 
 
 FLASH_BWD_CASES = [
@@ -743,11 +825,15 @@ DECODE_CASES = [
     (4, 544, 48, 8, 128, 544, None, None, torch.bfloat16),   # grok-1's group of 6
     (4, 544, 16, 16, 128, 544, None, None, torch.bfloat16),  # moonshot's group 1
     (2, 4096, 48, 8, 128, 3000, None, 30.0, torch.bfloat16),
+    (4, 1500, 12, 12, 64, 1500, None, None, torch.bfloat16),   # whisper's cross cache
+    (4, 288, 12, 12, 64, (257, 288), None, None, torch.bfloat16),  # whisper's self cache
+    (4, 1120, 32, 8, 128, (577, 1088, 1120), None, None, torch.bfloat16),  # llava's
 ]
-# b, cache, length, query heads, kv heads: the served path (mistral's 32/8),
-# a long cache, and moonshot's group 1 (a row of its own in the kernels line).
-DECODE_SHAPES = {"path": (4, 544, 544, 32, 8), "long": (4, 32768, 32768, 32, 8),
-                 "moonshot": (4, 544, 544, 16, 16)}
+# b, cache, length, query heads, kv heads, head dim: the served path
+# (mistral's 32/8), a long cache, and moonshot's group 1 and whisper's cross
+# attention (rows of their own in the kernels line).
+DECODE_SHAPES = {"path": (4, 544, 544, 32, 8, 128), "long": (4, 32768, 32768, 32, 8, 128),
+                 "moonshot": (4, 544, 544, 16, 16, 128), "whisper": (4, 1500, 1500, 12, 12, 64)}
 
 
 def decode_bound(b, hq, hkv, hd, length, itemsize):
@@ -768,22 +854,26 @@ def check_decode() -> dict:
             out = decode_attention_cuda(q, k, v, length, window=window, softcap=cap)
             exp = ref.decode_attention(q, k, v, length, window=window, softcap=cap)
             err = float((out.float() - exp.float()).abs().max())
+            rel = rel_err(out, exp)
             torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
             log(f"decode B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} length={length} "
                 f"window={window} softcap={cap} q {str(qdt)[6:]} cache {str(dt)[6:]}: "
-                f"max abs err {err:.3g} (tol {tol:g})")
+                f"max abs err {err:.3g} (tol {tol:g}), relative L2 {rel:.3g} "
+                f"(tol {ATTN_REL_TOL:g})")
+            check(rel <= ATTN_REL_TOL, f"decode B={b} S={s} length={length}: relative L2 {rel}")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
-    for name, (b, s, length, hq, hkv) in DECODE_SHAPES.items():
-        q = randn((b, hq, 128), torch.bfloat16, seed=7)
-        k = randn((b, s, hkv, 128), torch.bfloat16, seed=8)
-        v = randn((b, s, hkv, 128), torch.bfloat16, seed=9)
+    for name, (b, s, length, hq, hkv, hd) in DECODE_SHAPES.items():
+        q = randn((b, hq, hd), torch.bfloat16, seed=7)
+        k = randn((b, s, hkv, hd), torch.bfloat16, seed=8)
+        v = randn((b, s, hkv, hd), torch.bfloat16, seed=9)
         out = decode_attention_cuda(q, k, v, length)
         exp = ref.decode_attention(q, k, v, length)
-        err = float((out.float() - exp.float()).abs().max())
-        check(err <= DECODE_BF16_TOL, f"decode at the {name} shape: max abs err {err}")
+        err, rel = float((out.float() - exp.float()).abs().max()), rel_err(out, exp)
+        check(err <= DECODE_BF16_TOL and rel <= ATTN_REL_TOL,
+              f"decode at the {name} shape: max abs err {err}, relative L2 {rel}")
         qs, ks, vs = q[:, :, None], k[:, :length].transpose(1, 2), v[:, :length].transpose(1, 2)
-        db, dby = decode_bound(b, hq, hkv, 128, length, 2)
+        db, dby = decode_bound(b, hq, hkv, hd, length, 2)
         n = 200 if s < 4096 else 50
         rows[name] = dict(
             max_abs_err=err,
@@ -794,14 +884,16 @@ def check_decode() -> dict:
         r = rows[name]
         eager = time_ms(lambda: decode_attention_cuda(q, k, v, length), n)
         eager_lib = time_ms(lambda: sdpa(qs, ks, vs, enable_gqa=True), n)
-        log(f"decode_attention at the {name} shape (B={b}, {hq}/{hkv} heads, hd 128, cache {s}, "
+        log(f"decode_attention at the {name} shape (B={b}, {hq}/{hkv} heads, hd {hd}, cache {s}, "
             f"length {length}, bf16): {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({dby}), scaled_dot_product_attention "
             f"{r['library_ms']:.4f} ms; an eager call {eager:.4f} ms "
-            f"(scaled_dot_product_attention {eager_lib:.4f} ms); max abs err {err:.3g}")
+            f"(scaled_dot_product_attention {eager_lib:.4f} ms); max abs err {err:.3g}, "
+            f"relative L2 {rel:.3g}")
         del q, k, v, qs, ks, vs, out, exp
         free()
-    return {"decode_attention": rows["path"], "decode_attention_moonshot": rows["moonshot"]}
+    return {"decode_attention": rows["path"], "decode_attention_moonshot": rows["moonshot"],
+            "decode_attention_whisper": rows["whisper"]}
 
 
 SSD_CASES = [
@@ -997,56 +1089,78 @@ def check_ssd_bwd() -> dict:
 # ---------------------------------------------------------------------------
 # Phase 4: full-width agreement, card (kernels) vs CPU (plain versions)
 # ---------------------------------------------------------------------------
+# Two full-width blocks (layers) card vs CPU through the pushdown: (arch,
+# positions a sample: tokens, or whisper's frames).
+FULL_WIDTH = ((ARCH, 512), (WHISPER_ARCH, WHISPER_FRAMES))
+
+
+def two_layers(cfg):
+    """``cfg`` cut to two layers (an encoder-decoder's: two of each)."""
+    cut = dict(n_enc_layers=2, n_dec_layers=2) if cfg.family == "encdec" else {}
+    return dataclasses.replace(cfg, n_layers=2, **cut)
+
+
 def check_full_width() -> None:
-    cfg = dataclasses.replace(get_config(ARCH), n_layers=2)
-    shape = ShapeConfig("agree", "train", seq_len=512, global_batch=2)
-    plan = plan_tiers(cfg, shape, HapiConfig(compress_transfer=True, cos_batch=2,
-                                             cos_batch_min=1))
-    check(plan.split == 1, f"2-block plan split {plan.split}")
-    lm_gpu = build_model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(1))
-    lm_cpu = copy.deepcopy(lm_gpu).cpu()
-    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 512))
-    extract, tune = make_extract_fn(plan), make_tune_loss_fn(plan)
-    losses, acts = {}, {}
-    for dev, lm in (("cuda", lm_gpu), ("cpu", lm_cpu)):
-        t = torch.from_numpy(toks).to(dev)
-        batch = {"tokens": t, "labels": t}
-        frozen, trainable = lm.split_params(plan.split)
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            wire = extract(frozen, batch)
-            acts[dev] = ops.dequantize_int8(*wire).float().cpu()
-            losses[dev] = float(tune(trainable, wire, batch))
-        log(f"full width, 2 blocks, batch 2 x 512 on {dev}: loss {losses[dev]:.6f} "
-            f"({time.perf_counter() - t0:.1f} s)")
-    diff = abs(losses["cuda"] - losses["cpu"])
-    act_err = float((acts["cuda"] - acts["cpu"]).abs().max())
-    log(f"full width agreement: |loss card - loss cpu| = {diff:.3g} (tol {LOSS_TOL:g}); "
-        f"boundary max abs err {act_err:.3g}")
-    check(math.isfinite(losses["cuda"]) and diff <= LOSS_TOL, "card and CPU losses disagree")
-    del lm_gpu, lm_cpu
-    torch.cuda.empty_cache()
+    for arch, seq in FULL_WIDTH:
+        cfg = two_layers(get_config(arch))
+        shape = ShapeConfig("agree", "train", seq_len=seq, global_batch=2)
+        plan = plan_tiers(cfg, shape, HapiConfig(compress_transfer=True, cos_batch=2,
+                                                 cos_batch_min=1))
+        check(plan.split == 1, f"{arch}: 2-block plan split {plan.split}")
+        lm_gpu = build_model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(1))
+        lm_cpu = copy.deepcopy(lm_gpu).cpu()
+        req = pushdown_request(cfg, 2, seq, 7)
+        extract, tune = make_extract_fn(plan), make_tune_loss_fn(plan)
+        losses, acts = {}, {}
+        for dev, lm in (("cuda", lm_gpu), ("cpu", lm_cpu)):
+            batch = {k: t.to(dev) for k, t in req.items()}
+            frozen, trainable = lm.split_params(plan.split)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                wire = extract(frozen, batch)
+                acts[dev] = ops.dequantize_int8(*wire).float().cpu()
+                losses[dev] = float(tune(trainable, wire, batch))
+            log(f"full width, {arch} 2 layers, batch 2 x {seq} on {dev}: loss "
+                f"{losses[dev]:.6f} ({time.perf_counter() - t0:.1f} s)")
+        diff = abs(losses["cuda"] - losses["cpu"])
+        act_err = float((acts["cuda"] - acts["cpu"]).abs().max())
+        log(f"full width agreement, {arch}: |loss card - loss cpu| = {diff:.3g} (tol "
+            f"{LOSS_TOL:g}); boundary max abs err {act_err:.3g}")
+        check(math.isfinite(losses["cuda"]) and diff <= LOSS_TOL,
+              f"{arch}: card and CPU losses disagree")
+        del lm_gpu, lm_cpu, req
+        free()
 
 
-def serving_outputs(lm, toks: torch.Tensor, prompt: int, steps: int) -> dict:
+def serving_outputs(lm, toks: torch.Tensor, prompt: int, steps: int, extra: dict) -> dict:
     """The prefill's last logits and per-layer SSM states, then ``steps``
     teacher-forced decode steps after the prompt (the prefill's K/V copied
     into a cache of prompt + steps positions; mamba decodes from the prefill's
-    own cache)."""
+    own cache). ``extra`` holds a vlm's patches, which come before the prompt
+    in the prefill and in its cache, or an encoder-decoder's frames; that
+    decodes from the prefill's own cache of prompt + steps positions."""
     prefill, step = build_prefill_step(lm), build_decode_step(lm)
-    logits, caches = prefill({"tokens": toks[:, :prompt]})
-    out = {"prefill": logits,
-           "states": [c["sub0"].ssm for c in caches if hasattr(c["sub0"], "ssm")]}
-    cache = lm.init_cache(toks.shape[0], prompt + steps)
+    inputs = {"tokens": toks[:, :prompt], **extra}
+    if lm.cfg.family == "encdec":
+        inputs["smax"] = prompt + steps
+    logits, caches = prefill(inputs)
+    out = {"prefill": logits, "states": []}
+    if lm.cfg.family == "encdec":
+        for i in range(steps):
+            out[f"step {i}"], caches = step(caches, toks[:, prompt + i:prompt + i + 1], prompt + i)
+        return out
+    out["states"] = [c["sub0"].ssm for c in caches if hasattr(c["sub0"], "ssm")]
+    live = prompt + (lm.cfg.n_patches if lm.cfg.family == "vlm" else 0)
+    cache = lm.init_cache(toks.shape[0], live + steps)
     for full, part in zip(cache, caches):
         for name, c in full.items():
             if isinstance(c, KVCache):
-                c.k[:, :prompt] = part[name].k
-                c.v[:, :prompt] = part[name].v
+                c.k[:, :live] = part[name].k
+                c.v[:, :live] = part[name].v
             else:
                 full[name] = part[name]
     for i in range(steps):
-        out[f"step {i}"], cache = step(cache, toks[:, prompt + i:prompt + i + 1], prompt + i)
+        out[f"step {i}"], cache = step(cache, toks[:, prompt + i:prompt + i + 1], live + i)
     return out
 
 
@@ -1129,25 +1243,39 @@ def check_moe_layer() -> None:
     free()
 
 
-# Two full-width blocks (layers) card vs CPU: (arch, prompt).
+# Two full-width blocks (layers) card vs CPU: (arch, prompt tokens; for
+# whisper the frames, its prompt is dec_seq tokens; llava's 576 patches come
+# before its prompt).
 FULL_WIDTH_SERVING = (("mistral-nemo-12b", 512), ("mamba2-1.3b", 512), ("mamba2-1.3b", 100),
-                      ("mamba2-1.3b", 8), (MOE_ARCH, 512))
+                      ("mamba2-1.3b", 8), (MOE_ARCH, 512), (WHISPER_ARCH, WHISPER_FRAMES),
+                      (LLAVA_ARCH, 64))
 
 
 def check_full_width_serving() -> None:
     for arch, prompt in FULL_WIDTH_SERVING:
-        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+        cfg = two_layers(get_config(arch))
         lm_gpu = build_model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(2))
         lm_cpu = copy.deepcopy(lm_gpu).cpu()
-        toks = np.random.default_rng(8).integers(0, cfg.vocab_size, (2, prompt + 4))
+        rng = np.random.default_rng(8)
+        extra = {}
+        if cfg.family == "encdec":
+            extra["frames"] = rng.standard_normal((2, prompt, cfg.d_model), dtype=np.float32)
+            prompt = cfg.dec_seq
+        elif cfg.family == "vlm":
+            extra["patches"] = rng.standard_normal((2, cfg.n_patches, cfg.d_model),
+                                                   dtype=np.float32)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, prompt + 4)))
         outs, routes = {}, {}
         for dev, lm in (("cuda", lm_gpu), ("cpu", lm_cpu)):
             t0 = time.perf_counter()
             with RoutingLog(lm) as routing:
-                outs[dev] = serving_outputs(lm, torch.from_numpy(toks).to(dev), prompt, 4)
+                outs[dev] = serving_outputs(lm, toks.to(dev), prompt, 4,
+                                            {k: torch.from_numpy(x).to(dev)
+                                             for k, x in extra.items()})
             routes[dev] = routing.calls
-            log(f"full width serving, {arch} 2 layers, prompt 2 x {prompt} + 4 steps on {dev} "
-                f"({time.perf_counter() - t0:.1f} s)")
+            log(f"full width serving, {arch} 2 layers, prompt 2 x {prompt}"
+                f"{''.join(f' + {k} {x.shape[1]}' for k, x in extra.items())} + 4 steps on "
+                f"{dev} ({time.perf_counter() - t0:.1f} s)")
         tol = SERVE_AGREE_TOL
         if cfg.family == "moe":
             tol = MOE_AGREE_TOL
@@ -1259,16 +1387,40 @@ PUSHDOWN = (
 )
 
 
+def pushdown_request(cfg, batch: int, seq: int, seed: int) -> dict:
+    """A request of ``batch`` samples of ``seq`` positions on the card, made
+    from ``seed``: tokens (their own labels); for encdec ``seq`` frames and
+    ``dec_seq`` tokens and labels; for vlm ``n_patches`` patches and the
+    text after them."""
+    rng = np.random.default_rng(seed)
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def ints(n):
+        return torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, n))).cuda()
+
+    if cfg.family == "encdec":
+        return {"frames": torch.randn((batch, seq, cfg.d_model), generator=g, device="cuda"),
+                "tokens": ints(cfg.dec_seq), "labels": ints(cfg.dec_seq)}
+    toks = ints(seq - cfg.n_patches)
+    req = {"tokens": toks, "labels": toks}
+    if cfg.family == "vlm":
+        req["patches"] = torch.randn((batch, cfg.n_patches, cfg.d_model), generator=g,
+                                     device="cuda")
+    return req
+
+
 def serve_slice(arch: str, batch: int, cos_batch: int, split: int, wire_want: int,
-                launches_want: dict) -> dict:
-    """N_REQUESTS pushdown requests of ``batch`` x 4,096 tokens on ``arch``
-    at full width and depth, planned with COS batch ``cos_batch``; returns
-    the launches of each kernel."""
+                launches_want: dict, seq: int = 4096) -> dict:
+    """N_REQUESTS pushdown requests of ``batch`` x ``seq`` positions (tokens,
+    or whisper's frames, or llava's patches and tokens) on ``arch`` at full
+    width and depth, planned with COS batch ``cos_batch``; returns the
+    launches of each kernel."""
     cfg = get_config(arch)
-    shape = ShapeConfig("slice", "train", seq_len=4096, global_batch=batch)
+    shape = ShapeConfig("slice", "train", seq_len=seq, global_batch=batch)
     plan = plan_tiers(cfg, shape, HapiConfig(compress_transfer=True, cos_batch=cos_batch,
                                              cos_batch_min=1))
-    log(f"plan {arch}: split {plan.split} of {cfg.n_blocks} blocks, cos_batch "
+    log(f"plan {arch}: split {plan.split} of {cfg.n_blocks} blocks ("
+        f"{'the freeze index' if plan.split == cfg.freeze_index else 'Alg. 1'}), cos_batch "
         f"{plan.cos_batch}, compress {plan.compress}; {plan.decision.reason}")
     check((plan.split, plan.cos_batch, plan.compress) == (split, cos_batch, True),
           "unexpected plan")
@@ -1282,8 +1434,10 @@ def serve_slice(arch: str, batch: int, cos_batch: int, split: int, wire_want: in
     frozen, trainable = lm.split_params(plan.split)
     extract, tune = make_extract_fn(plan), make_tune_loss_fn(plan)
     n_mb = batch // plan.cos_batch
-    per_request = {"flash_attention": plan.split * n_mb + cfg.n_blocks - plan.split,
-                   "quantize_int8": n_mb, "dequantize_int8": 1}
+    # The prefix's blocks per microbatch, the suffix's once (whisper's suffix
+    # also runs its 12 decoder blocks' self-attention).
+    per_request = {"flash_attention": plan.split * n_mb + cfg.n_blocks - plan.split
+                   + cfg.n_dec_layers, "quantize_int8": n_mb, "dequantize_int8": 1}
     check(per_request == launches_want, f"unexpected launches per request {per_request}")
     per_request = {k: per_request.get(k, 0) for k in KERNELS}
 
@@ -1291,9 +1445,7 @@ def serve_slice(arch: str, batch: int, cos_batch: int, split: int, wire_want: in
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     for r in range(N_REQUESTS):
-        toks = torch.from_numpy(
-            np.random.default_rng(100 + r).integers(0, cfg.vocab_size, (batch, 4096))).cuda()
-        req = {"tokens": toks, "labels": toks}
+        req = pushdown_request(cfg, batch, seq, 100 + r)
         before = ops.launch_counts()
         t0 = time.perf_counter()
         acts = extract(frozen, req)
@@ -1306,8 +1458,8 @@ def serve_slice(arch: str, batch: int, cos_batch: int, split: int, wire_want: in
         wire = wire_bytes(acts)
         log(f"request {r} ({arch}): extract {1e3 * (t1 - t0):.1f} ms, tune "
             f"{1e3 * (t2 - t1):.1f} ms, wire {wire} bytes, loss {loss:.6f}, launches {rose}")
-        check(acts[0].shape == (batch, 4096, cfg.d_model)
-              and acts[1].shape == (batch, 4096, cfg.d_model // 128), "boundary shapes")
+        check(acts[0].shape == (batch, seq, cfg.d_model)
+              and acts[1].shape == (batch, seq, cfg.d_model // 128), "boundary shapes")
         check(wire == wire_want, f"wire bytes {wire} != {wire_want}")
         check(math.isfinite(loss) and abs(loss - math.log(cfg.vocab_size)) < 3.0,
               f"loss {loss} is not near ln(vocab)")
@@ -1335,8 +1487,8 @@ def serve_model(arch: str, capacity: Optional[float] = None) -> dict:
     serve() would draw from seed 0 on the card; at another capacity only the
     prefill and the teacher-forced refill, no new tokens."""
     if arch not in SERVE_LAYERS and capacity is None:
-        return serve(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, new_tokens=SERVE_TOKENS,
-                     smoke=False, seed=0)
+        return serve(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPTS.get(arch, SERVE_PROMPT),
+                     new_tokens=SERVE_TOKENS, smoke=False, seed=0)
     cfg = get_config(arch)
     cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS.get(arch, cfg.n_layers))
     new_tokens = SERVE_TOKENS
@@ -1350,12 +1502,18 @@ def serve_model(arch: str, capacity: Optional[float] = None) -> dict:
     return generate(model, tokens, new_tokens)
 
 
-def serve_models() -> tuple:
-    """Each served model at full width (jamba cut to SERVE_LAYERS); returns
-    the launches of each kernel summed over the calls, and each model's."""
+def serve_models(arches=SERVED) -> tuple:
+    """Each of ``arches`` served at full width (jamba cut to SERVE_LAYERS);
+    returns the launches of each kernel summed over the calls, and each
+    model's. The prefill's logits are held to the last teacher-forced step's
+    (CONSISTENCY_TOL); an encoder-decoder has no refill, and llava's refill
+    leaves the patch rows of the cache zero, as the reference's does, so its
+    error is printed and not held."""
     total = dict.fromkeys(KERNELS, 0)
     by_arch = {}
-    for arch, want in SERVE_LAUNCHES.items():
+    for arch in arches:
+        want = SERVE_LAUNCHES[arch]
+        prompt = SERVE_PROMPTS.get(arch, SERVE_PROMPT)
         free()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1366,28 +1524,40 @@ def serve_models() -> tuple:
         counts = by_arch[arch] = ops.launch_counts()
         cfg = get_config(arch)
         v = cfg.vocab_size
-        pre, tf = out["prefill_logits"][..., :v], out["teacher_logits"][..., :v]
-        err = rel_err(tf, pre)
-        agree = float((pre.argmax(-1) == tf.argmax(-1)).float().mean())
-        blocks = SERVE_LAYERS.get(arch, cfg.n_layers) * cfg.n_blocks // cfg.n_layers
-        log(f"serve {arch} (full width, {blocks} blocks, bf16, batch {SERVE_BATCH}, prompt "
-            f"{SERVE_PROMPT}, {SERVE_TOKENS} new tokens): prefill {out['prefill_ms']:.1f} ms, "
+        pre = out["prefill_logits"][..., :v]
+        blocks = (f"{cfg.n_enc_layers} + {cfg.n_dec_layers} layers" if cfg.family == "encdec"
+                  else f"{SERVE_LAYERS.get(arch, cfg.n_layers) * cfg.n_blocks // cfg.n_layers} "
+                  "blocks")
+        refill = "" if cfg.family == "encdec" else (
             f"teacher-forced refill {out['teacher_ms']:.1f} ms "
-            f"({out['teacher_ms'] / SERVE_PROMPT:.2f} ms/step), decode "
+            f"({out['teacher_ms'] / prompt:.2f} ms/step), ")
+        log(f"serve {arch} (full width, {blocks}, bf16, batch {SERVE_BATCH}, prompt "
+            f"{prompt}{' frames' if cfg.family == 'encdec' else ''}, {SERVE_TOKENS} new "
+            f"tokens): prefill {out['prefill_ms']:.1f} ms, {refill}decode "
             f"{out['tok_per_s']:.1f} tok/s, peak device memory "
             f"{torch.cuda.max_memory_allocated()} bytes, wall {wall:.1f} s, launches {counts}")
         check(counts == {k: want.get(k, 0) for k in counts},
               f"{arch}: launches {counts}, expected {want}")
-        check(bool(torch.isfinite(pre).all() and torch.isfinite(tf).all()),
-              f"{arch}: logits not finite")
-        check(out["tokens"].shape == (SERVE_BATCH, SERVE_TOKENS + 1), f"{arch}: token shape")
-        what = "published capacity" if cfg.n_experts else "prefill"
-        log(f"serve {arch}: {what} vs last teacher-forced logits relative L2 {err:.3g}"
-            f"{'' if cfg.n_experts else f' (tol {CONSISTENCY_TOL[arch]:g})'}, max abs "
-            f"{float((pre - tf).abs().max()):.3g}, argmax agreement {agree:.2f}; "
-            f"tokens {out['tokens'][:, :8].tolist()}")
+        check(bool(torch.isfinite(pre).all()), f"{arch}: logits not finite")
+        check(out["tokens"].shape == (SERVE_BATCH, SERVE_TOKENS + 1)
+              and bool(((out["tokens"] >= 0) & (out["tokens"] < v)).all()), f"{arch}: tokens")
         for k in total:
             total[k] += counts[k]
+        if out["teacher_logits"] is None:
+            log(f"serve {arch}: tokens {out['tokens'][:, :8].tolist()}")
+            del out, pre
+            continue
+        tf = out["teacher_logits"][..., :v]
+        check(bool(torch.isfinite(tf).all()), f"{arch}: teacher-forced logits not finite")
+        err = rel_err(tf, pre)
+        agree = float((pre.argmax(-1) == tf.argmax(-1)).float().mean())
+        held = arch in CONSISTENCY_TOL
+        what = "published capacity" if cfg.n_experts else "prefill"
+        note = "" if cfg.n_experts else (f" (tol {CONSISTENCY_TOL[arch]:g})" if held else
+                                         " (not held: the refill skips the patches)")
+        log(f"serve {arch}: {what} vs last teacher-forced logits relative L2 {err:.3g}{note}, "
+            f"max abs {float((pre - tf).abs().max()):.3g}, argmax agreement {agree:.2f}; "
+            f"tokens {out['tokens'][:, :8].tolist()}")
         if cfg.n_experts:
             # No slot drops at capacity E / k: the prefill and the refill agree.
             del out, pre, tf
@@ -1403,10 +1573,71 @@ def serve_models() -> tuple:
                 f"argmax agreement {agree:.2f}")
             check(bool(torch.isfinite(pre).all() and torch.isfinite(tf).all()),
                   f"{arch}: logits not finite")
-        check(err <= CONSISTENCY_TOL[arch], f"{arch}: prefill and teacher-forced logits differ")
+        if held:
+            check(err <= CONSISTENCY_TOL[arch],
+                  f"{arch}: prefill and teacher-forced logits differ")
         del out, pre, tf
     free()
     return total, by_arch
+
+
+# ---------------------------------------------------------------------------
+# The encoder-decoder and VLM families
+# ---------------------------------------------------------------------------
+# The pushdowns, as PUSHDOWN's rows, with the positions a sample: whisper's
+# 8 clips of 1,500 frames at Alg. 1's split 1 (the int8 boundary is smaller
+# than the bf16 frames), COS batch 4; a request is 2 microbatches of 1
+# encoder block, then the suffix's 11 encoder blocks and 12 decoder blocks.
+# llava's 4 x (576 patches + 3,520 tokens) get no Alg. 1 candidate (the token
+# input is smaller than every boundary), so the freeze index 24, COS batch 2.
+WHISPER_PUSHDOWN = (WHISPER_ARCH, 8, 4, 1, 9_216_000 + 288_000,
+                    {"flash_attention": 1 * 2 + 11 + 12, "quantize_int8": 2,
+                     "dequantize_int8": 1}, WHISPER_FRAMES)
+LLAVA_PUSHDOWN = (LLAVA_ARCH, 4, 2, 24, 67_108_864 + 2_097_152,
+                  {"flash_attention": 24 * 2 + 8, "quantize_int8": 2, "dequantize_int8": 1},
+                  4096)
+
+
+def whisper() -> tuple:
+    """whisper-small at full width and depth: the pushdown, then serving.
+    Returns the launches of each, and those of its two shapes with rows of
+    their own, read from the wrappers' counts by shape: the encoder's flash
+    (1,500 frames, non-causal) by batch, and the cross-attention decode over
+    the 1,500-frame cache."""
+    cfg = get_config(WHISPER_ARCH)
+    s, h, hkv, hd = WHISPER_FLASH
+
+    def encoder():
+        return {key[0]: n for key, n in flash.fwd_shapes.items()
+                if key[1:] == (s, h, hkv, hd, False)}
+
+    pushed = serve_slice(*WHISPER_PUSHDOWN)
+    enc = encoder()
+    served, _ = serve_models((WHISPER_ARCH,))
+    for b, n in encoder().items():
+        enc[b] = enc.get(b, 0) + n
+    cross = decode_k.shapes[(SERVE_BATCH, WHISPER_FRAMES, h, hkv, hd)]
+    own = decode_k.shapes[(SERVE_BATCH, cfg.dec_seq + SERVE_TOKENS, h, hkv, hd)]
+    # A request: the prefix's block over each microbatch of COS batch 4, the
+    # suffix's 11 encoder blocks over the 8 clips; serving: 12 over 4 clips.
+    _, batch, cos_batch, split = WHISPER_PUSHDOWN[:4]
+    want = {cos_batch: N_REQUESTS * split * batch // cos_batch + cfg.n_enc_layers,
+            batch: N_REQUESTS * (cfg.n_enc_layers - split)}
+    log(f"{WHISPER_ARCH}: encoder flash launches by batch {enc} (expected {want}); decode "
+        f"launches over the cross cache {cross}, over the self cache {own} (expected "
+        f"{cfg.n_dec_layers * SERVE_TOKENS} each)")
+    check(enc == want, f"{WHISPER_ARCH}: encoder flash launches {enc}, expected {want}")
+    check(cross == own == cfg.n_dec_layers * SERVE_TOKENS,
+          f"{WHISPER_ARCH}: decode launches {cross} (cross), {own} (self)")
+    return pushed, served, enc, cross
+
+
+def llava() -> tuple:
+    """llava-next-mistral-7b at full width and depth: the pushdown, then
+    serving; returns the launches of each."""
+    pushed = serve_slice(*LLAVA_PUSHDOWN)
+    served, _ = serve_models((LLAVA_ARCH,))
+    return pushed, served
 
 
 # ---------------------------------------------------------------------------
@@ -2243,6 +2474,8 @@ def main() -> int:
     pushdown = phase("pushdown", pushdown_requests)
     free()
     served, served_by_arch = phase("serving", serve_models)
+    whisper_pushed, whisper_served, whisper_enc, whisper_cross = phase("whisper", whisper)
+    llava_pushed, llava_served = phase("llava", llava)
     trained = phase("training", train_slice)
     trained_ssm = phase("training_ssm", lambda: train_slice(
         SSM_ARCH, get_config(SSM_ARCH).n_layers, 36, SSM_WIRE_BYTES, SSM_TRAIN_LAUNCHES))
@@ -2250,10 +2483,14 @@ def main() -> int:
     epoch_seen, images, labels = phase("epoch", lambda: epoch(smi))
     fleet_seen = phase("fleet", lambda: fleet(smi, images, labels))
     del images, labels
+    families = (whisper_pushed, whisper_served, llava_pushed, llava_served)
     launches = {name: pushdown[name] + served[name] + trained[name] + trained_ssm[name]
-                + seen[name] + epoch_seen[name] + fleet_seen[name] for name in KERNELS}
+                + seen[name] + epoch_seen[name] + fleet_seen[name]
+                + sum(f[name] for f in families) for name in KERNELS}
     log(f"launches: pushdown {pushdown}, serving {served}, training {trained}, "
-        f"SSM training {trained_ssm}, vision {seen}, epoch {epoch_seen}, fleet {fleet_seen}")
+        f"SSM training {trained_ssm}, vision {seen}, epoch {epoch_seen}, fleet {fleet_seen}, "
+        f"whisper pushdown {whisper_pushed}, whisper serving {whisper_served}, llava pushdown "
+        f"{llava_pushed}, llava serving {llava_served}")
     log(f"phase wall seconds {phases}; total {time.perf_counter() - t_start:.1f} s")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main paths")
@@ -2268,7 +2505,17 @@ def main() -> int:
                  seen["flash_attention"] + epoch_seen["flash_attention"]
                  + fleet_seen["flash_attention"],
                  "the ViT's blocks at the COS batch (200 x 196, 6 heads of 64, f32, "
-                 "non-causal; route 3xtf32)")]
+                 "non-causal; route 3xtf32)"),
+                ("flash_attention", "flash_attention_whisper", sum(whisper_enc.values()),
+                 f"whisper-small's encoder (1,500 frames, 12 heads of 64, bf16, non-causal): "
+                 f"{whisper_enc[WHISPER_ROW_BATCH]} launches at {WHISPER_ROW_BATCH} clips, the "
+                 f"tune side's suffix (the row's times), "
+                 + ", ".join(f"{n} at {b}" for b, n in whisper_enc.items()
+                             if b != WHISPER_ROW_BATCH)
+                 + " (the extract's microbatches and serving's prefill)"),
+                ("decode_attention", "decode_attention_whisper", whisper_cross,
+                 "whisper-small's cross-attention decode (4 x 1,500 frames, 12/12 heads, hd 64, "
+                 "bf16)")]
     main_launches = dict(launches)
     for kernel, _, n, _ in own_rows:
         main_launches[kernel] -= n

@@ -1,9 +1,10 @@
 """The JAX package's parameter trees as state_dicts of the port, and back.
 
 A JAX parameter tree is a nested dict of arrays. Its path, joined with
-".", is the state_dict key, except under ``blocks``, whose leaves are
-stacked over a leading block axis (``repro/models/module.py``
-``stack_init``); that axis is unstacked into the ``nn.ModuleList`` index:
+".", is the state_dict key, except under ``blocks`` (and the encoder-decoder's
+``enc_blocks`` and ``dec_blocks``), whose leaves are stacked over a leading
+block axis (``repro/models/module.py`` ``stack_init``); that axis is
+unstacked into the ``nn.ModuleList`` index:
 
     JAX path (leaf [i] of the block axis)      state_dict key
     embed                                      embed
@@ -19,6 +20,18 @@ stacked over a leading block axis (``repro/models/module.py``
     blocks/sub{j}/mamba/{name} [i]             blocks.{i}.sub{j}.mamba.{name}
     final_norm/scale                           final_norm.scale
     unembed                                    unembed
+
+and for the encoder-decoder (``models/encdec.py``)
+
+    enc_blocks/{ln1,ln2}/{scale,bias} [i]      enc_blocks.{i}.{ln1,ln2}.{scale,bias}
+    enc_blocks/attn/{wq,wk,wv,wo} [i]          enc_blocks.{i}.attn.{wq,wk,wv,wo}
+    enc_blocks/mlp/{w_gate,w_up,w_down} [i]    enc_blocks.{i}.mlp.{w_gate,w_up,w_down}
+    enc_norm/{scale,bias}                      enc_norm.{scale,bias}
+    dec_embed, dec_pos                         dec_embed, dec_pos
+    dec_blocks/{ln1,ln2,ln3}/... [i]           dec_blocks.{i}.{ln1,ln2,ln3}...
+    dec_blocks/{self_attn,cross_attn}/... [i]  dec_blocks.{i}.{self_attn,cross_attn}...
+    dec_blocks/mlp/... [i]                     dec_blocks.{i}.mlp...
+    dec_norm/{scale,bias}                      dec_norm.{scale,bias}
 
 where a mamba ``{name}`` is one of ``w_z``, ``w_x``, ``w_B``, ``w_C``,
 ``w_dt``, ``conv_x``, ``conv_x_b``, ``conv_B``, ``conv_B_b``, ``conv_C``,
@@ -56,12 +69,10 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import build_lm
+from repro_torch.models.api import build_model
 from repro_torch.models.vision import EncoderBlock
-from repro_torch.optim.adamw import OptState
+from repro_torch.optim.adamw import STACKED, OptState
 from repro_torch.train.steps import TrainState
-
-BLOCKS = "blocks"
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -107,13 +118,13 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     torch) arrays."""
     sd: Dict[str, torch.Tensor] = {}
     for key, node in tree.items():
-        if key == BLOCKS:
+        if key in STACKED:
             flat = _flatten(node)
             n = len(next(iter(flat.values())))
             for i in range(n):
                 for path, a in flat.items():
                     leaf = a[i] if isinstance(a, torch.Tensor) else np.asarray(a)[i]
-                    sd[f"{BLOCKS}.{i}.{path}"] = _to_torch(leaf)
+                    sd[f"{key}.{i}.{path}"] = _to_torch(leaf)
         elif isinstance(node, Mapping):
             sd.update({k: _to_torch(a) for k, a in _flatten(node, key).items()})
         else:
@@ -125,18 +136,19 @@ def params_to_tree(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The JAX parameter tree of a state_dict, with the blocks restacked on
     a leading axis; the leaves are torch tensors on the state_dict's device."""
     flat: Dict[str, torch.Tensor] = {}
-    per_block: Dict[int, Dict[str, torch.Tensor]] = {}
+    stacks: Dict[str, Dict[int, Dict[str, torch.Tensor]]] = {}
     for key, t in state_dict.items():
         parts = key.split(".")
-        if parts[0] == BLOCKS:
+        if parts[0] in STACKED:
+            per_block = stacks.setdefault(parts[0], {})
             per_block.setdefault(int(parts[1]), {})[".".join(parts[2:])] = t.detach()
         else:
             flat[key] = t.detach()
     tree = _nest(flat)
-    if per_block:
-        tree[BLOCKS] = _nest({path: torch.stack([per_block[i][path]
-                                                 for i in range(len(per_block))])
-                              for path in per_block[0]})
+    for name, per_block in stacks.items():
+        tree[name] = _nest({path: torch.stack([per_block[i][path]
+                                               for i in range(len(per_block))])
+                            for path in per_block[0]})
     return tree
 
 
@@ -156,10 +168,11 @@ def train_state_from_jax(state, cfg, *, device="cpu"):
     """The port's ``TrainState`` from a JAX one (or any ``(frozen, trainable,
     (m, v, step))`` of parameter trees). The model is built on ``device`` and
     its weights replaced by the state's; the split is the frozen part's
-    number of blocks."""
+    number of blocks (encoder blocks for the encoder-decoder)."""
     frozen_tree, trainable_tree, (m, v, step) = state
-    split = len(next(iter(_flatten(frozen_tree[BLOCKS]).values())))
-    lm = build_lm(cfg, device=device, generator=torch.Generator(device).manual_seed(0))
+    stacked = next(k for k in STACKED if k in frozen_tree)
+    split = len(next(iter(_flatten(frozen_tree[stacked]).values())))
+    lm = build_model(cfg, device=device, generator=torch.Generator(device).manual_seed(0))
     frozen, trainable = lm.split_params(split)
     frozen.load_state_dict(params_from_jax(frozen_tree))
     trainable.load_state_dict(params_from_jax(trainable_tree))

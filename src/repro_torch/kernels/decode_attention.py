@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from collections import Counter
 from typing import Dict, Optional
 
 import torch
@@ -47,6 +48,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SCRATCH: Dict[tuple, tuple] = {}   # (device, rows class) -> (part_ml, part_acc, counters)
 
 launches = 0
+shapes: Counter = Counter()   # launches by (B, cache positions S, Hq, Hkv, hd)
 
 
 def live_keys(length: int, window: Optional[int]) -> tuple:
@@ -156,4 +158,5 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel failed: CUDA error {rc}")
     launches += 1
+    shapes[(b, s, hq, hkv, hd)] += 1
     return out

@@ -58,10 +58,12 @@ def reset_launch_counts() -> None:
     fk.launches = 0
     fk.bwd_launches = 0
     fk.fwd_routes.update(dict.fromkeys(fk.FWD_ROUTES, 0))
+    fk.fwd_shapes.clear()
     ik.quantize_launches = 0
     ik.quantize_routes.update(vector=0, scalar=0)
     ik.dequantize_launches = 0
     dk.launches = 0
+    dk.shapes.clear()
     sk.launches = 0
     sk.bwd_launches = 0
 

@@ -4,21 +4,30 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral-nemo-12b --full \\
         --prompt-len 512 --tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-mistral-7b --full
 
-Counterpart of the ``--arch`` path of ``repro/launch/serve.py``, for the LM
-families the port has: dense (mistral-nemo-12b, gemma2-9b, qwen3-32b,
-qwen1.5-110b), moe (moonshot-v1-16b-a3b, grok-1-314b), ssm (mamba2-1.3b) and
-hybrid (jamba-v0.1-52b). The loop (``generate``) is the JAX launcher's: the
-prompt is prefilled and that cache is discarded; a fixed-size cache of
-``prompt_len + new_tokens`` positions is refilled by teacher-forcing the
-prompt one token at a time; the first new token is the argmax of the last
-teacher-forced step's logits, and ``new_tokens`` greedy steps follow.
-``tok_per_s`` counts the greedy loop only. Weights and prompt tokens come
-from one ``torch.Generator`` seeded with ``seed``: on the CPU for the smoke
-config, so that a seed gives the same model and prompts on every device,
-and on the device for the published config, whose weights are too large to
-draw on the host. It runs on the card unless ``device="cpu"``; the smoke
-config (f32, head dim 16) is the default, ``--full`` the published one.
+Counterpart of the ``--arch`` path of ``repro/launch/serve.py``, for every
+family: dense (mistral-nemo-12b, gemma2-9b, qwen3-32b, qwen1.5-110b), moe
+(moonshot-v1-16b-a3b, grok-1-314b), ssm (mamba2-1.3b), hybrid
+(jamba-v0.1-52b), vlm (llava-next-mistral-7b) and encdec (whisper-small).
+The loop (``generate``) is the JAX launcher's: the prompt is prefilled and
+that cache is discarded; a fixed-size cache of ``prompt_len + new_tokens``
+positions is refilled by teacher-forcing the prompt one token at a time; the
+first new token is the argmax of the last teacher-forced step's logits, and
+``new_tokens`` greedy steps follow. vlm prompts carry ``n_patches`` random
+patch embeddings: the prefill sees them, the refill writes the text alone at
+positions ``n_patches + t`` (cache rows of the patches stay zero, as the
+reference leaves them), and decoding starts at ``prompt_len + n_patches``.
+For encdec, ``prompt_len`` random frames are encoded and the decoder's
+prompt is ``dec_seq`` ones; the prefill's cache is decoded from directly,
+with no refill, from position ``dec_seq``. ``tok_per_s`` counts the greedy
+loop only. Weights and prompts come from one ``torch.Generator`` seeded with
+``seed``: on the CPU for the smoke config, so that a seed gives the same
+model and prompts on every device, and on the device for the published
+config, whose weights are too large to draw on the host. It runs on the card
+unless ``device="cpu"``; the smoke config (f32, head dim 16) is the default,
+``--full`` the published one.
 
 The fleet half is the counterpart of the JAX launcher's ``--cos-fleet`` and
 ``--replay`` paths, with the same flags, branches and printouts. It runs the
@@ -51,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -58,7 +68,6 @@ import torch
 from repro_torch.config import HW
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models.api import build_model
-from repro_torch.models.transformer import LM
 from repro_torch.train.steps import build_decode_step, build_prefill_step
 
 
@@ -69,45 +78,74 @@ def _sync(device: torch.device) -> None:
 
 def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, new_tokens: int = 16,
           smoke: bool = True, seed: int = 0, device="cuda") -> dict:
-    """``generate`` on the model of ``arch`` and a batch of random prompts."""
+    """``generate`` on the model of ``arch`` and a batch of random prompts
+    (for encdec, ``prompt_len`` random frames and ``dec_seq`` ones; for vlm,
+    random tokens and patches)."""
     device = torch.device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     init = torch.device("cpu") if smoke else device
     gen = torch.Generator(device=init).manual_seed(seed)
     model = build_model(cfg, device=init, generator=gen).to(device)
+    if cfg.family == "encdec":
+        frames = torch.randn((batch, prompt_len, cfg.d_model), generator=gen, device=init)
+        tokens = torch.ones((batch, cfg.dec_seq), dtype=torch.long, device=device)
+        return generate(model, tokens, new_tokens, frames=frames.to(device))
     tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen,
                            device=init).to(device)
-    return generate(model, tokens, new_tokens)
+    patches = None
+    if cfg.family == "vlm":
+        patches = torch.randn((batch, cfg.n_patches, cfg.d_model), generator=gen,
+                              device=init).to(device)
+    return generate(model, tokens, new_tokens, patches=patches)
 
 
-def generate(model: LM, tokens: torch.Tensor, new_tokens: int) -> dict:
-    """Serves the prompts ``tokens`` (B, prompt_len) on ``model``'s device.
-    Returns the prompt and the greedy tokens (B, new_tokens + 1) as numpy,
-    ``tok_per_s``, the wall times of the prefill and of the teacher-forced
-    refill in ms, and the logits (B, 1, padded_vocab) of the prefill's last
-    position and of the last teacher-forced step, which see the same
-    prompt."""
+def generate(model, tokens: torch.Tensor, new_tokens: int, *,
+             frames: Optional[torch.Tensor] = None,
+             patches: Optional[torch.Tensor] = None) -> dict:
+    """Serves the prompts ``tokens`` (B, prompt_len) on ``model``'s device,
+    with an encoder-decoder's ``frames`` (B, S_frames, D) or a vlm's
+    ``patches`` (B, n_patches, D). Returns the prompt and the greedy tokens
+    (B, new_tokens + 1) as numpy, ``tok_per_s``, the wall times of the
+    prefill and of the teacher-forced refill in ms, and the logits (B, 1,
+    padded_vocab) of the prefill's last position and of the last
+    teacher-forced step, which see the same prompt (the same text for vlm,
+    whose refill skips the patches). An encoder-decoder decodes from the
+    prefill's own cache: its refill takes 0 ms and its ``teacher_logits``
+    are None."""
+    cfg = model.cfg
     device = tokens.device
     batch, prompt_len = tokens.shape
     prefill, step = build_prefill_step(model), build_decode_step(model)
+    inputs = {"tokens": tokens}
+    if cfg.family == "encdec":
+        inputs.update(frames=frames, smax=prompt_len + new_tokens)
+    elif patches is not None:
+        inputs["patches"] = patches
+    off = cfg.n_patches if cfg.family == "vlm" else 0
+    start = prompt_len + off
 
     _sync(device)
     t0 = time.perf_counter()
-    prefill_logits, _ = prefill({"tokens": tokens})
+    logits, cache = prefill(inputs)
+    prefill_logits = logits
     _sync(device)
     t1 = time.perf_counter()
-    cache = model.init_cache(batch, prompt_len + new_tokens)
-    logits = None
-    for t in range(prompt_len):
-        logits, cache = step(cache, tokens[:, t:t + 1], t)
+    if cfg.family == "encdec":
+        teacher_logits = None
+    else:
+        # Refill a fixed-size cache by teacher-forcing the prompt.
+        del cache
+        cache = model.init_cache(batch, start + new_tokens)
+        for t in range(prompt_len):
+            logits, cache = step(cache, tokens[:, t:t + 1], off + t)
+        teacher_logits = logits
     _sync(device)
     t2 = time.perf_counter()
-    teacher_logits = logits
 
     tok = torch.argmax(logits[:, -1:], dim=-1)
     out = [tok]
     for i in range(new_tokens):
-        logits, cache = step(cache, tok, prompt_len + i)
+        logits, cache = step(cache, tok, start + i)
         tok = torch.argmax(logits[:, -1:], dim=-1)
         out.append(tok)
     _sync(device)
@@ -319,10 +357,11 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default=None,
-                    help="a dense, moe, ssm or hybrid arch, e.g. moonshot-v1-16b-a3b "
+                    help="an arch of any family, e.g. moonshot-v1-16b-a3b or whisper-small "
                          "(required unless --cos-fleet or --replay is given)")
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--prompt-len", type=int, default=32,
+                    help="prompt tokens (vlm: text tokens after the patches; encdec: frames)")
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--full", action="store_true", help="the published config, not the smoke one")
     ap.add_argument("--seed", type=int, default=0)

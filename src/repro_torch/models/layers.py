@@ -1,4 +1,5 @@
-"""Layers of the dense and MoE LM families, and the mamba frontend's causal conv.
+"""Layers of the LM families and of the encoder-decoder, and the mamba
+frontend's causal conv.
 
 Counterpart of ``repro/models/layers.py``. Each layer is an ``nn.Module``
 whose parameters keep the JAX package's names and shapes (``wq`` is
@@ -53,6 +54,29 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rmsnorm(self.scale, x, self.eps)
+
+
+def layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """f32 mean and (biased) variance, ``rsqrt(var + eps)``, then scale and
+    bias in f32, cast back to x's dtype."""
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(dt)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, dim: int, eps: float, *, dtype: torch.dtype, device):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layernorm(self.scale, self.bias, x, self.eps)
 
 
 # ---------------------------------------------------------------------------

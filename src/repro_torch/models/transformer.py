@@ -1,4 +1,5 @@
-"""Decoder LM of the dense, MoE, SSM and hybrid families, split at block boundaries.
+"""Decoder LM of the dense, MoE, SSM, hybrid and VLM families, split at block
+boundaries.
 
 Counterpart of ``repro/models/transformer.py``:
   * The layer stack is a ``nn.ModuleList`` of blocks whose boundaries are
@@ -23,8 +24,13 @@ Counterpart of ``repro/models/transformer.py``:
     V are cached in bf16, unrepeated, and written in place by
     ``decode_step``.
 
-The vlm family is not ported yet and raises ``NotImplementedError`` (and
-encdec in ``models/api.py``).
+  * vlm (llava): the stub frontend's patch embeddings ``batch["patches"]``
+    (B, n_patches, D) are prepended to the token embeddings before the
+    sqrt(d_model) scale, positions cover n_patches + S, and the loss reads
+    the logits from position n_patches on. ``prefill`` and ``Prefix`` take
+    the patches; ``decode_step`` embeds its token alone.
+
+The encoder-decoder family is ``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -82,7 +88,7 @@ class Sublayer(nn.Module):
         super().__init__()
         if sub.mixer not in ("attn", "attn_local", "mamba") or \
                 sub.ffn not in ("mlp", "moe", "none"):
-            raise NotImplementedError(f"sublayer {sub} is not ported yet")
+            raise ValueError(f"unknown sublayer {sub}")
         init = dict(dtype=dtype_of(cfg.param_dtype), device=device)
         self.cfg = cfg
         self.is_mamba = sub.mixer == "mamba"
@@ -186,8 +192,12 @@ class Block(nn.Module):
 # ---------------------------------------------------------------------------
 # Embedding, head, loss
 # ---------------------------------------------------------------------------
-def _embed_tokens(embed: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _embed_tokens(embed: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig,
+                  patches: Optional[torch.Tensor] = None) -> torch.Tensor:
     h = embed[tokens].to(dtype_of(cfg.compute_dtype))
+    if cfg.family == "vlm" and patches is not None:
+        # LLaVA stub frontend: prepend pre-computed patch embeddings.
+        h = torch.cat([patches.to(h.dtype), h], dim=1)
     root_d = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32, device=h.device))
     return h * root_d.to(h.dtype)
 
@@ -213,22 +223,26 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1)
 
 
-def _lm_loss(logits: torch.Tensor, batch: dict) -> torch.Tensor:
+def _lm_loss(logits: torch.Tensor, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.family == "vlm":
+        logits = logits[:, cfg.n_patches:]
     return cross_entropy(logits[:, :-1], batch["labels"][:, 1:], batch.get("mask"))
 
 
-def _run_blocks(blocks: Iterable[Block], h: torch.Tensor) -> torch.Tensor:
-    """Under autograd each block is rematerialised, as the JAX model's
-    ``remat_name = "block"``: only its input is kept, and its forward runs
+def _run_blocks(blocks: Iterable[nn.Module], h: torch.Tensor, *args) -> torch.Tensor:
+    """``block(h, positions, *args)`` for each block, positions 0 .. S - 1
+    of h. Under autograd each block is rematerialised, as the JAX model's
+    ``remat_name = "block"``: only its inputs are kept, and its forward runs
     again in the backward. The blocks draw no random numbers, so the RNG
     state is not saved."""
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     for block in blocks:
         if torch.is_grad_enabled() and (
                 h.requires_grad or any(p.requires_grad for p in block.parameters())):
-            h = checkpoint(block, h, positions, use_reentrant=False, preserve_rng_state=False)
+            h = checkpoint(block, h, positions, *args, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
-            h = block(h, positions)
+            h = block(h, positions, *args)
     return h
 
 
@@ -249,11 +263,11 @@ class LM(nn.Module):
         self.unembed = unembed
 
     def forward(self, batch: dict) -> torch.Tensor:
-        return self._logits(
-            _run_blocks(self.blocks, _embed_tokens(self.embed, batch["tokens"], self.cfg)))
+        return self._logits(_run_blocks(self.blocks, _embed_tokens(
+            self.embed, batch["tokens"], self.cfg, batch.get("patches"))))
 
     def loss(self, batch: dict) -> torch.Tensor:
-        return _lm_loss(self(batch), batch)
+        return _lm_loss(self(batch), batch, self.cfg)
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         w = self.embed if self.unembed is None else self.unembed
@@ -266,7 +280,7 @@ class LM(nn.Module):
 
     def prefill(self, batch: dict) -> Tuple[torch.Tensor, List[BlockCache]]:
         """Logits of the last position (B, 1, padded_vocab) and the cache."""
-        h = _embed_tokens(self.embed, batch["tokens"], self.cfg)
+        h = _embed_tokens(self.embed, batch["tokens"], self.cfg, batch.get("patches"))
         positions = torch.arange(h.shape[1], device=h.device)[None, :]
         caches = []
         for block in self.blocks:
@@ -309,7 +323,8 @@ class Prefix(nn.Module):
 
     def forward(self, batch: dict) -> torch.Tensor:
         """forward_prefix: the boundary activations (B, S, D)."""
-        return _run_blocks(self.blocks, _embed_tokens(self.embed, batch["tokens"], self.cfg))
+        return _run_blocks(self.blocks, _embed_tokens(self.embed, batch["tokens"], self.cfg,
+                                                      batch.get("patches")))
 
 
 class Suffix(nn.Module):
@@ -329,7 +344,7 @@ class Suffix(nn.Module):
 
     def loss(self, acts: torch.Tensor, batch: dict) -> torch.Tensor:
         """loss_suffix."""
-        return _lm_loss(self(acts), batch)
+        return _lm_loss(self(acts), batch, self.cfg)
 
 
 def merge_params(frozen: Prefix, trainable: Suffix) -> LM:
@@ -338,10 +353,10 @@ def merge_params(frozen: Prefix, trainable: Suffix) -> LM:
 
 
 def build_lm(cfg: ModelConfig, *, device="cuda", generator: torch.Generator) -> LM:
-    """A randomly initialised dense, MoE, SSM or hybrid LM on ``device``;
-    ``generator`` must be a generator of that device."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(f"the {cfg.family} family is not ported yet")
+    """A randomly initialised dense, MoE, SSM, hybrid or VLM LM on
+    ``device``; ``generator`` must be a generator of that device."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm"):
+        raise ValueError(f"build_lm takes no {cfg.family} model")
     dt = dtype_of(cfg.param_dtype)
     embed = nn.Parameter(embed_init(generator, cfg.padded_vocab, cfg.d_model, dt, device))
     blocks = [Block(cfg, device=device, generator=generator) for _ in range(cfg.n_blocks)]

@@ -30,12 +30,16 @@ class OptState(NamedTuple):
     step: torch.Tensor   # int32 scalar on the parameters' device
 
 
+# The JAX trees' block stacks: the LMs' blocks, the encoder-decoder's two.
+STACKED = ("blocks", "enc_blocks", "dec_blocks")
+
+
 def jax_path(name: str) -> Tuple[str, bool]:
     """The JAX tree path of a state_dict name ("blocks.3.sub0.attn.wq" ->
     "blocks/sub0/attn/wq") and whether the leaf is stacked over the blocks
     there, which gives it one more axis than it has in the port."""
     parts = name.split(".")
-    if parts[0] == "blocks":
+    if parts[0] in STACKED:
         return "/".join([parts[0], *parts[2:]]), True
     return "/".join(parts), False
 

@@ -1077,3 +1077,124 @@ def test_cuda_smoke_serve_matches_the_cpu(card, arch):
     assert counts["flash_attention"] > 0
     assert counts["decode_attention"] == counts["flash_attention"] * steps
     assert (counts["ssd_scan"] > 0) == (arch == "jamba-v0.1-52b")
+
+
+# ---------------------------------------------------------------------------
+# whisper-small and llava-next-mistral-7b
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1500, 1536])
+def test_cuda_flash_whisper_encoder_matches_plain(card, s):
+    """whisper's encoder self-attention: bf16, non-causal, 12 heads of 64,
+    over 1,500 frames (not a multiple of the 128-row q tile) and 1,536. The
+    outputs average over about 550 keys (rms about 0.043), so beside the
+    max-abs bound the output is held by relative L2 (1e-2; bf16 rounding
+    gives about 3e-3, and dropping the 92 keys past the last full tile about
+    0.25)."""
+    q, k, v = (torch.from_numpy(_normal((2, s, 12, 64), seed)).to(card, torch.bfloat16)
+               for seed in (81, 82, 83))
+    tops.reset_launch_counts()
+    out = tfk.flash_attention_cuda(q, k, v, causal=False)
+    assert tfk.launches == 1 and tfk.fwd_routes["wgmma"] == 1
+    assert tfk.fwd_shapes == {(2, s, 12, 12, 64, False): 1}
+    exp = tref.flash_attention(q, k, v, causal=False)
+    torch.testing.assert_close(out.float(), exp.float(), atol=2e-2, rtol=2e-2)
+    assert _rel(out, exp) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt", ["bfloat16", "float32"])
+def test_cuda_decode_whisper_cross_attention_matches_plain(card, qdt):
+    """One query over whisper's 1,500-frame cross cache: group 1, hd 64, the
+    bf16 cache, the query in the model's dtype."""
+    q = torch.from_numpy(_normal((4, 12, 64), 84)).to(card, _TORCH[qdt])
+    k, v = (torch.from_numpy(_normal((4, 1500, 12, 64), seed)).to(card, torch.bfloat16)
+            for seed in (85, 86))
+    tops.reset_launch_counts()
+    out = tdk.decode_attention_cuda(q, k, v, 1500)
+    assert tdk.shapes == {(4, 1500, 12, 12, 64): 1}
+    exp = tref.decode_attention(q, k, v, 1500)
+    torch.testing.assert_close(out.float(), exp.float(), atol=3e-2, rtol=3e-2)
+    assert _rel(out, exp) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [577, 600, 1088, 1120])
+def test_cuda_decode_llava_over_zero_patch_rows(card, length):
+    """llava's served cache: the refill leaves the 576 patch rows zero, and
+    decode attends over them (keys < length live), 32/8 heads of 128. The
+    zero rows take most of the weight, so the outputs are small (at length
+    577 about 1/577 of a value row) and are also held by relative L2."""
+    q = torch.from_numpy(_normal((4, 32, 128), 87)).to(card, torch.bfloat16)
+    k, v = (torch.from_numpy(_normal((4, 1120, 8, 128), seed)).to(card, torch.bfloat16)
+            for seed in (88, 89))
+    k[:, :576] = 0
+    v[:, :576] = 0
+    out = tdk.decode_attention_cuda(q, k, v, length)
+    exp = tref.decode_attention(q, k, v, length)
+    torch.testing.assert_close(out.float(), exp.float(), atol=3e-2, rtol=3e-2)
+    assert _rel(out, exp) <= 1e-2
+
+
+def _two_layer_outputs(model, batch: dict, feed: torch.Tensor, start: int, smax: int):
+    """Prefill logits, then a decode step for each column of ``feed`` from
+    ``start`` on, under no_grad."""
+    from repro_torch.train.steps import build_decode_step, build_prefill_step
+
+    logits, cache = build_prefill_step(model)(batch)
+    out = [logits]
+    if not isinstance(cache, dict):      # the LM: copy the prefill's K/V into smax positions
+        full = model.init_cache(feed.shape[0], smax)
+        for f, c in zip(full, cache):
+            f["sub0"].k[:, :start] = c["sub0"].k
+            f["sub0"].v[:, :start] = c["sub0"].v
+        cache = full
+    step = build_decode_step(model)
+    for i in range(feed.shape[1]):
+        logits, cache = step(cache, feed[:, i:i + 1], start + i)
+        out.append(logits)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-small", "llava-next-mistral-7b"])
+def test_cuda_two_layers_card_vs_cpu(card, arch):
+    """The smoke configs (two layers; whisper two encoder and two decoder
+    layers over 1,500 frames; f32, head dim 16; the published widths at two
+    layers run in ``chip_smoke.py``): the prefill's logits to 1e-4 relative
+    L2 (both devices in f32, TF32 off) and 3 decode steps from the bf16
+    caches to 2e-2, card (kernels) vs CPU (plain versions); whisper's loss
+    to 1e-4; exact launches on the card."""
+    from repro_torch.models.api import build_model
+
+    cfg = get_smoke_config(arch)
+    gpu = build_model(cfg, device=card, generator=torch.Generator(card).manual_seed(5))
+    cpu = copy.deepcopy(gpu).cpu()
+    rng = np.random.default_rng(90)
+    if cfg.family == "encdec":
+        text, start = cfg.dec_seq, cfg.dec_seq
+        extra = {"frames": torch.from_numpy(_normal((2, 1500, cfg.d_model), 91)),
+                 "smax": start + 3}
+    else:
+        text, start = 32, 32 + cfg.n_patches
+        extra = {"patches": torch.from_numpy(_normal((2, cfg.n_patches, cfg.d_model), 91))}
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, text + 3)))
+    outs, losses = {}, {}
+    for dev, m in ((card, gpu), (torch.device("cpu"), cpu)):
+        batch = {k: (x.to(dev) if torch.is_tensor(x) else x) for k, x in extra.items()}
+        batch.update(tokens=toks[:, :text].to(dev), labels=toks[:, :text].to(dev))
+        tops.reset_launch_counts()
+        outs[dev.type] = _two_layer_outputs(m, batch, toks[:, text:].to(dev), start, start + 3)
+        if dev.type == "cuda":
+            counts = tops.launch_counts()
+        if cfg.family == "encdec":
+            with torch.no_grad():
+                losses[dev.type] = float(m.loss(batch))
+    v = cfg.vocab_size
+    for i, (a, b) in enumerate(zip(outs["cuda"], outs["cpu"])):
+        assert torch.isfinite(a).all() and _rel(a[..., :v], b[..., :v]) <= (2e-2 if i else 1e-4)
+    if cfg.family == "encdec":
+        assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4
+        assert counts["flash_attention"] == 4 and counts["decode_attention"] == 2 * 2 * 3
+    else:
+        assert counts["flash_attention"] == 2 and counts["decode_attention"] == 2 * 3

@@ -183,13 +183,6 @@ def test_convert_bf16_goes_through_f32_exactly():
                                   np.asarray(jbf, np.float32))
 
 
-@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "whisper-small"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError):
-        build_model(t_get_smoke_config(arch), device="cpu",
-                    generator=torch.Generator().manual_seed(0))
-
-
 def test_build_initialises_from_the_generator():
     cfg = t_get_smoke_config("mistral-nemo-12b")
     a = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(3))

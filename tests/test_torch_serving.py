@@ -278,8 +278,3 @@ def test_serve_cli_on_cpu(capsys):
                  "--prompt-len", "16", "--tokens", "3"])
     out = capsys.readouterr().out
     assert "decoded (2, 4)" in out and "prefill" in out
-
-
-def test_serve_refuses_unported_families():
-    with pytest.raises(NotImplementedError):
-        tserve.serve("whisper-small", batch=1, prompt_len=16, new_tokens=1, device="cpu")

@@ -109,7 +109,8 @@ def test_adapt_batches_matches_jax():
 
 
 @pytest.mark.parametrize("arch", ["mistral-nemo-12b", "qwen3-32b", "gemma2-9b", "mamba2-1.3b",
-                                  "moonshot-v1-16b-a3b", "jamba-v0.1-52b"])
+                                  "moonshot-v1-16b-a3b", "jamba-v0.1-52b",
+                                  "llava-next-mistral-7b", "whisper-small"])
 @pytest.mark.parametrize("budget", [1e6, 1e9, 16e9, 80e9, 1e12])
 @pytest.mark.parametrize("smoke", [True, False])
 def test_plan_tiers_matches_jax(arch, budget, smoke):

@@ -47,9 +47,10 @@ from repro_torch.models.api import build_model
 from repro_torch.optim import adamw as tadamw
 from repro_torch.train import steps as tsteps
 
-# The archs build_lm takes (dense, moe, ssm and hybrid families).
-LM_ARCHS = ["mistral-nemo-12b", "gemma2-9b", "qwen3-32b", "qwen1.5-110b", "mamba2-1.3b",
-            "moonshot-v1-16b-a3b", "grok-1-314b", "jamba-v0.1-52b"]
+# Every arch: the LM families, the vlm and the encoder-decoder.
+ARCHS = ["mistral-nemo-12b", "gemma2-9b", "qwen3-32b", "qwen1.5-110b", "mamba2-1.3b",
+         "moonshot-v1-16b-a3b", "grok-1-314b", "jamba-v0.1-52b", "llava-next-mistral-7b",
+         "whisper-small"]
 
 
 def _np(x):
@@ -129,7 +130,7 @@ def test_global_norm_matches_jax():
                                rtol=1e-6)
 
 
-@pytest.mark.parametrize("arch", LM_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_decay_mask_matches_jax_for_every_arch(arch):
     """By name and by the rank in the stacked JAX tree, over every parameter
     of the model: mamba2's A_log and D (per-block vectors) are decayed there
@@ -146,6 +147,9 @@ def test_decay_mask_matches_jax_for_every_arch(arch):
     if arch == "mamba2-1.3b":
         assert tmask["blocks.0.sub0.mamba.A_log"] == 1.0
         assert tmask["blocks.0.sub0.mamba.dt_bias"] == 0.0
+    if arch == "whisper-small":
+        assert tmask["enc_blocks.0.ln1.bias"] == 0.0 and tmask["dec_pos"] == 1.0
+        assert tmask["dec_blocks.1.cross_attn.wk"] == 1.0
 
 
 # ---------------------------------------------------------------------------
