@@ -37,20 +37,30 @@ three paths at full width:
   decode 32 tokens greedily, with exact launch counts and the prefill's
   logits held to the last teacher-forced step's (for the MoE models at a
   capacity where no slot drops).
-* Training (``repro_torch.train.steps.build_hapi_train_step``): one step of a
-  full-width two-block mistral-nemo-12b, and of a full-width two-layer
-  mamba2-1.3b, gives the same loss, gradients and updates on the card and on
-  the CPU; ``launch.train.run_training`` passes ``tests/test_e2e_smoke.py``'s
+* Training (``repro_torch.train.steps.build_hapi_train_step``): one step of
+  each full-width two-block model (mistral-nemo-12b, mamba2-1.3b,
+  moonshot-v1-16b-a3b with the share of routing decisions that agree,
+  whisper-small at two encoder and two decoder layers over 1,500 frames,
+  llava-next-mistral-7b with its 576 patches) gives the same loss,
+  gradients and updates on the card and on the CPU, with exact launches
+  (mamba2 and whisper also with the plain backward on the card beside the
+  kernel); ``launch.train.run_training`` passes ``tests/test_e2e_smoke.py``'s
   three scenarios on the card (the smoke configs: the loss falls, a crash
-  resumes, the int8 boundary trains) and trains mamba2 there, its SSD scan
-  differentiated by the backward kernel; then mistral-nemo-12b at full width
-  cut to 8 blocks (split 6: 2 trainable blocks and the head), and
-  mamba2-1.3b at full width and depth (48 layers, split 36: 12 trainable
-  layers and the head), each take 4 fused-path steps on one repeated
-  4 x 4,096 batch, the loss falling, and one coarse-path step, with the
-  planner's wire bytes a step (86,507,520 and 34,603,008), exact launch
-  counts and the frozen prefix unchanged bit for bit; each step's time is
-  split into extract, tune (forward and backward) and AdamW.
+  resumes, the int8 boundary trains) and trains mamba2, moonshot, jamba
+  (its hybrid backward end to end), whisper and llava there; then the
+  train paths of ``TRAIN_PATHS``: mistral-nemo-12b and moonshot-v1-16b-a3b
+  at full width cut to 8 blocks (split 6), mamba2-1.3b (48 layers, split
+  36), whisper-small (8 x 1,500 frames, split 1) and llava-next-mistral-7b
+  (split 24) whole, each 4 fused-path steps on one repeated batch, the loss
+  falling, and one coarse-path step, with the planner's wire bytes a step,
+  launches exact (flash's by shape, derived from the model's structure) and
+  the frozen prefix unchanged bit for bit; each step's time is split into
+  extract, tune (forward and backward) and AdamW.
+* The collectives (``repro_torch.distributed.collectives``): on a one-rank
+  NCCL group, ``compressed_psum`` of a full-width gradient over 8 rounds
+  equals the plain versions' composition bit for bit, and error feedback
+  shrinks the running sum's error; ``tier_transfer`` of a llava train
+  step's boundary counts the bytes the train path counted.
 * The paper's own workload (``repro_torch.models.vision``): AlexNet, ResNet18,
   VGG11 and the ViT encoder at full width (224 x 224 x 3, 1,000 classes)
   agree card vs CPU at their Alg. 1 split and at the last boundary; each is
@@ -106,11 +116,14 @@ three paths at full width:
   (no Alg. 1 candidate: the freeze index 24, COS batch 2) and serves 4
   prompts of 512 tokens after the patches through the teacher-forced refill
   and 32 greedy tokens. Wire bytes equal Alg. 1's and launches are exact.
-  flash at whisper's encoder shape and decode at its cross-attention shape
-  are timed on rows of their own in the kernels line
-  (``flash_attention_whisper``, at the 8-clip batch that runs most of its
-  launches, and ``decode_attention_whisper``); their launches are read from
-  the wrappers' counts by shape and taken out of the main rows. Every flash
+  flash at whisper's encoder shape, its backward there and decode at its
+  cross-attention shape are timed on rows of their own in the kernels line
+  (``flash_attention_whisper`` and ``flash_attention_bwd_whisper`` at the
+  2-clip chunks that run most of their launches in training, and
+  ``decode_attention_whisper``); their launches are read from the
+  wrappers' counts by shape and taken out of the main rows. The SSD
+  backward at jamba's full-width shape has a row of its own,
+  ``ssd_scan_bwd_jamba``, with no main-path launches. Every flash
   and decode case is held to its plain version by relative L2 as well as by
   its max-abs bound.
 
@@ -121,6 +134,7 @@ numbers, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -139,6 +153,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -156,6 +171,8 @@ from repro_torch.cos.client import BaselineClient, HapiClient  # noqa: E402
 from repro_torch.cos.clock import Link, Simulator  # noqa: E402
 from repro_torch.cos.objectstore import ObjectStore  # noqa: E402
 from repro_torch.cos.server import HapiServer  # noqa: E402
+from repro_torch.distributed.collectives import (  # noqa: E402
+    compressed_psum, decompress_boundary, tier_transfer)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import int8_transfer, ssd_scan  # noqa: E402
 from repro_torch.kernels import decode_attention as decode_k  # noqa: E402
@@ -170,6 +187,7 @@ from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda  # noq
 from repro_torch.launch.serve import generate, serve  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.launch.train import run_training  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.models.layers import KVCache, MoE, moe_apply, moe_route  # noqa: E402
 from repro_torch.models.transformer import Sublayer  # noqa: E402
@@ -237,47 +255,7 @@ KERNELS = {
     # No TPU kernel: the JAX train step differentiates ssd_chunked through XLA.
     "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan_bwd.cu", "src/repro/models/ssm.py:89"),
 }
-# The training slice: mistral-nemo-12b at full width, cut to 8 blocks (freeze
-# index 6: 2 trainable blocks, final_norm and unembed), a batch of 4 x 4,096.
-TRAIN_LAYERS = 8
-TRAIN_FUSED_STEPS = 4
-TRAIN_LR = 1e-4
-# Launches of one train step. Fused (microbatch 2 >= COS batch 2): 2 chunks,
-# each 6 prefix forwards, 2 + 2 suffix forwards (remat reruns each block's
-# forward in the backward), 2 backwards, 1 quantize, 1 dequantize. Coarse
-# (microbatch 1 < COS batch 2): extraction over 2 microbatches (12 prefix
-# forwards, 2 quantizes), then 4 chunks of one sample, each 1 dequantize,
-# 4 suffix forwards and 2 backwards.
-TRAIN_LAUNCHES = {
-    "fused": {"flash_attention": 2 * (6 + 4), "flash_attention_bwd": 2 * 2,
-              "quantize_int8": 2, "dequantize_int8": 2},
-    "coarse": {"flash_attention": 12 + 4 * 4, "flash_attention_bwd": 4 * 2,
-               "quantize_int8": 2, "dequantize_int8": 4},
-}
-# The SSM training slice: mamba2-1.3b at full width and depth (48 layers,
-# freeze index 36: 12 trainable layers, final_norm and the tied head), the
-# same batch, plan and steps. By the same arithmetic: fused 2 x (36 + 12 + 12)
-# SSD forwards and 2 x 12 backwards; coarse 2 x 36 + 4 x (12 + 12) and 4 x 12.
 SSM_ARCH = "mamba2-1.3b"
-SSM_WIRE_BYTES = 33_554_432 + 1_048_576   # int8 codes + f32 scales of (4, 4096, 2048)
-SSM_TRAIN_LAUNCHES = {
-    "fused": {"ssd_scan": 120, "ssd_scan_bwd": 24, "quantize_int8": 2, "dequantize_int8": 2},
-    "coarse": {"ssd_scan": 168, "ssd_scan_bwd": 48, "quantize_int8": 2, "dequantize_int8": 4},
-}
-
-
-def train_launches(kind: str, n_blocks: int, split: int, fwd: str, bwd: str) -> dict:
-    """Launches of one train step of a batch of 4 at COS batch 2: fused
-    (microbatch 2), 2 chunks, each the prefix's forwards, each trainable
-    block's forward twice (remat) and its backward, 1 quantize and 1
-    dequantize; coarse (microbatch 1), extraction over 2 microbatches, then
-    4 chunks of one sample, each 1 dequantize."""
-    tail = n_blocks - split
-    if kind == "fused":
-        return {fwd: 2 * (split + 2 * tail), bwd: 2 * tail, "quantize_int8": 2,
-                "dequantize_int8": 2}
-    return {fwd: 2 * split + 4 * 2 * tail, bwd: 4 * tail, "quantize_int8": 2,
-            "dequantize_int8": 4}
 # Card vs CPU of one train step of the 2-block full-width model, bf16 on both.
 # The loss as LOSS_TOL; the gradient norm and the first moment m (0.1 x the
 # clipped gradient) to SERVE_AGREE_TOL relative: bf16 gradients summed in f32
@@ -302,8 +280,16 @@ CANCELLING_TOL = 0.25
 # f32 (check_ssd_bwd), which the bf16 rounding of the gradients upstream of
 # the scan amplifies, per tensor of the first moment, to 2.4e-3 relative L2 at
 # worst on an H100 (conv_C_b; the tensor-core backward's bf16 halves). Everything
-# else in the two steps is the same computation.
-KERNEL_STEP_TOL = 5e-3
+# else in the two steps is the same computation. whisper's step with the
+# flash backward kernel and with its plain version: 0.00891 at worst on an
+# H100 (the encoder's wq): the two differ by 2.6e-3 relative L2 in dq, dk and
+# dv at 1,500 frames (check_flash_bwd), which the cancellation described at
+# ENCDEC_TRAIN_TOL amplifies.
+KERNEL_STEP_TOL = {"ssm": 5e-3, "encdec": 2e-2}
+# The families whose 2-block card step also runs with the plain version of
+# its backward kernel on the card (plain_backward), by that kernel.
+PLAIN_BACKWARD_RUN = {"ssm": "SSD scan", "encdec": "flash attention"}
+PLAIN_RUN = "cuda, plain backward"
 # Launches of one serve() call at SERVE_BATCH x SERVE_PROMPT + SERVE_TOKENS:
 # a decode-attention launch per attention sublayer per decode step, a flash
 # launch per attention sublayer of the prefill, an SSD launch per mamba layer.
@@ -361,6 +347,103 @@ MOE_ROUTER_GRID, MOE_INPUT_GRID = 1 / 256, 1 / 64
 # logits (near 1).
 MOE_AGREE_TOL = 0.1
 MOE_ROUTE_AGREE = 0.95
+# The training paths at full width, one row an arch: the depth in layers
+# (None: the published depth), the planner's split, the batch, the positions
+# a sample (whisper's frames; llava's 576 patches and its text), and the wire
+# bytes of a step (Alg. 1's: the int8 codes and f32 scales of the batch's
+# boundary). mistral-nemo-12b and moonshot-v1-16b-a3b are cut to 8 blocks at
+# the freeze index 6 (2 trainable blocks, final_norm and the head):
+# moonshot's 12 trainable blocks at its published split 36 hold 6.85 B
+# parameters, about 96 GB of weights, f32 gradients and moments, beside 56 GB
+# of bf16 weights. whisper-small (12 + 12 layers, split 1: 11 encoder and 12
+# decoder layers train), llava-next-mistral-7b (32 blocks, split 24) and
+# mamba2-1.3b (48 layers, split 36) train whole. jamba-v0.1-52b trains on no
+# one card: its split unit, one 8-layer period, holds 12.73 B parameters,
+# about 178 GB to train.
+TrainPath = collections.namedtuple("TrainPath", "layers split batch seq wire")
+TRAIN_PATHS = {
+    ARCH: TrainPath(8, 6, 4, 4096, WIRE_BYTES),
+    SSM_ARCH: TrainPath(None, 36, 4, 4096, 33_554_432 + 1_048_576),   # (4, 4096, 2048)
+    WHISPER_ARCH: TrainPath(None, 1, 8, WHISPER_FRAMES, 9_216_000 + 288_000),  # (8, 1500, 768)
+    LLAVA_ARCH: TrainPath(None, 24, 4, 4096, 67_108_864 + 2_097_152),   # (4, 4096, 4096)
+    MOE_ARCH: TrainPath(8, 6, 4, 4096, 33_554_432 + 1_048_576),         # (4, 4096, 2048)
+}
+TRAIN_FUSED_STEPS = 4
+TRAIN_LR = 1e-4
+# Launches of one train step of mistral (8 blocks, split 6) and mamba2 (48
+# layers, split 36), worked out by hand, against which train_launches'
+# derivation from the model's structure is held. Fused (microbatch 2 >= COS
+# batch 2): 2 chunks, each 6 prefix forwards, 2 + 2 suffix forwards (remat
+# reruns each block's forward in the backward), 2 backwards, 1 quantize, 1
+# dequantize. Coarse (microbatch 1 < COS batch 2): extraction over 2
+# microbatches (12 prefix forwards, 2 quantizes), then 4 chunks of one
+# sample, each 1 dequantize, 4 suffix forwards and 2 backwards. mamba2 by the
+# same arithmetic: fused 2 x (36 + 12 + 12) SSD forwards and 2 x 12
+# backwards; coarse 2 x 36 + 4 x (12 + 12) and 4 x 12.
+TRAIN_LAUNCHES = {
+    ARCH: {"fused": {"flash_attention": 2 * (6 + 4), "flash_attention_bwd": 2 * 2,
+                     "quantize_int8": 2, "dequantize_int8": 2},
+           "coarse": {"flash_attention": 12 + 4 * 4, "flash_attention_bwd": 4 * 2,
+                      "quantize_int8": 2, "dequantize_int8": 4}},
+    SSM_ARCH: {"fused": {"ssd_scan": 120, "ssd_scan_bwd": 24, "quantize_int8": 2,
+                         "dequantize_int8": 2},
+               "coarse": {"ssd_scan": 168, "ssd_scan_bwd": 48, "quantize_int8": 2,
+                          "dequantize_int8": 4}},
+}
+
+
+def layer_kernels(cfg, seq: int, split: int) -> tuple:
+    """The forward kernel launches of one pass of a chunk over the prefix
+    and over the suffix of ``cfg`` split at ``split``, by (kernel, shape
+    without the batch: (S, H, Hkv, hd, causal), or None for the SSD scan,
+    which is not counted by shape). An encoder-decoder's prefix is encoder
+    blocks; its suffix, the rest of the encoder (non-causal over the frames)
+    and every decoder block (causal over ``dec_seq`` tokens; the
+    cross-attention is no kernel)."""
+    def attn(s, causal):
+        return "flash_attention", (s, cfg.n_heads, cfg.n_kv_heads, cfg.hdim, causal)
+
+    if cfg.family == "encdec":
+        enc, dec = attn(seq, False), attn(cfg.dec_seq, True)
+        return {enc: split}, {enc: cfg.n_enc_layers - split, dec: cfg.n_dec_layers}
+    if cfg.family not in ("dense", "moe", "vlm", "ssm"):
+        raise ValueError(f"no train path for the {cfg.family} family")
+    unit = ("ssd_scan", None) if cfg.family == "ssm" else attn(seq, True)
+    return {unit: split}, {unit: cfg.n_blocks - split}
+
+
+def train_launches(kind: str, prefix: dict, suffix: dict, batch: int, cos: int = 2) -> tuple:
+    """(launches by kernel, flash forward launches by shape, flash backward
+    launches by shape) of one train step of ``batch`` samples at COS batch
+    ``cos``, from ``layer_kernels``' passes. Fused (microbatch >= COS
+    batch): batch / cos chunks of cos samples, each the prefix's forwards,
+    each suffix forward twice (remat) and its backward, 1 quantize and 1
+    dequantize. Coarse (microbatch 1): the extraction over batch / cos
+    microbatches, then ``batch`` chunks of one sample, each 1 dequantize."""
+    fwd, bwd = collections.Counter(), collections.Counter()
+    n = batch // cos
+    if kind == "fused":
+        for (k, sh), c in prefix.items():
+            fwd[k, cos, sh] += n * c
+        for (k, sh), c in suffix.items():
+            fwd[k, cos, sh] += 2 * n * c
+            bwd[k, cos, sh] += n * c
+        counts = {"quantize_int8": n, "dequantize_int8": n}
+    else:
+        for (k, sh), c in prefix.items():
+            fwd[k, cos, sh] += n * c
+        for (k, sh), c in suffix.items():
+            fwd[k, 1, sh] += 2 * batch * c
+            bwd[k, 1, sh] += batch * c
+        counts = {"quantize_int8": n, "dequantize_int8": batch}
+    for which, tally in (("", fwd), ("_bwd", bwd)):
+        for (k, _, _), c in tally.items():
+            counts[k + which] = counts.get(k + which, 0) + c
+    by_shape = [{(b, *sh): c for (_, b, sh), c in tally.items() if sh is not None}
+                for tally in (fwd, bwd)]
+    return counts, *by_shape
+
+
 # The paper's vision workload: one object of 1,000 images (the paper's object
 # size), each model's Alg. 1 split under compress_transfer at a train batch of
 # 1,000 (HapiConfig's other defaults, as tests/test_torch_planner.py holds the
@@ -585,12 +668,13 @@ FLASH_CASES = [
     (4, 1088, 32, 8, 128, True, None, None, torch.bfloat16, BF16_TOL),   # llava's serving prefill
 ]
 # Whisper's encoder self-attention (S, H, Hkv, hd) and its batches: 4 clips
-# in the extract's microbatches and serving's prefill, 8 in the tune side's
-# suffix, which runs most of the launches and gives flash_attention_whisper's
-# row its times.
+# in the pushdown's extract microbatches and serving's prefill, 8 in the
+# pushdown's suffix, 1 and 2 in training's chunks; training's fused steps
+# (2 clips) run most of the launches and give flash_attention_whisper's row
+# its times.
 WHISPER_FLASH = (1500, 12, 12, 64)
-WHISPER_FLASH_BATCHES = (4, 8)
-WHISPER_ROW_BATCH = 8
+WHISPER_FLASH_BATCHES = (2, 4, 8)
+WHISPER_ROW_BATCH = 2
 
 
 def kernel_route(hd: int, dt: torch.dtype) -> str:
@@ -663,8 +747,8 @@ def check_flash() -> dict:
             f"{lib_ms:.4f} ms")
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
-    # whisper's encoder: 1,500 frames, non-causal, 12 heads of 64, at both
-    # batches its path runs; the row takes WHISPER_ROW_BATCH's numbers.
+    # whisper's encoder: 1,500 frames, non-causal, 12 heads of 64, at the
+    # batches its paths run; the row takes WHISPER_ROW_BATCH's numbers.
     s, h, hkv, hd = WHISPER_FLASH
     rows = {}
     for b in WHISPER_FLASH_BATCHES:
@@ -704,7 +788,15 @@ FLASH_BWD_CASES = [
     (4, 300, 4, 2, 16, True, 16, 50.0, torch.float32, F32_TOL),         # gemma2 smoke, local
     (2, 257, 8, 2, 32, True, None, None, torch.float32, F32_TOL),
     (1, 200, 4, 1, 128, True, 50, 30.0, torch.float32, F32_TOL),
+    (WHISPER_ROW_BATCH, *WHISPER_FLASH, False, None, None, torch.bfloat16, BF16_TOL),  # training
+    (8, 1500, 12, 12, 64, False, None, None, torch.bfloat16, BF16_TOL),  # 8 clips
 ]
+# The rows of the kernels line the backward gives, each timed at the shape
+# of the path whose launches it carries: the LM train paths' (2 x 4,096,
+# 32/8 heads of 128, causal), and whisper's encoder at the train path's
+# microbatch of 2 clips (1,500 frames, 12 heads of 64, non-causal).
+FLASH_BWD_ROWS = {(2, 4096, 32, 8, 128, True): "flash_attention_bwd",
+                  (WHISPER_ROW_BATCH, *WHISPER_FLASH, False): "flash_attention_bwd_whisper"}
 
 
 def flash_bwd_bound(b, s, h, hkv, hd, causal, window, itemsize):
@@ -715,9 +807,9 @@ def flash_bwd_bound(b, s, h, hkv, hd, causal, window, itemsize):
     return bound(nbytes, 10 * hd * b * h * live_pairs(s, causal, window), HW.peak_flops_bf16)
 
 
-def kernel_ms(fn, calls: int = 5) -> dict:
-    """Device ms of each port kernel one call of ``fn`` launches, by the
-    kernel's name, from torch.profiler."""
+def profiled_ms(fn, calls: int = 5) -> dict:
+    """Device ms of one call of ``fn`` by CUDA kernel (or copy), from
+    torch.profiler: the host's cost of issuing the call does not count."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -726,20 +818,32 @@ def kernel_ms(fn, calls: int = 5) -> dict:
         torch.cuda.synchronize()
     rows = {}
     for e in prof.key_averages():
-        name = re.search(r"bwd_[a-z0-9_]+", e.key)
-        if e.device_type == torch.autograd.DeviceType.CUDA and name:
-            rows[name.group(0)] = rows.get(name.group(0), 0.0) + e.device_time_total / 1e3 / calls
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            rows[e.key] = rows.get(e.key, 0.0) + e.device_time_total / 1e3 / calls
+    return rows
+
+
+def kernel_ms(fn, calls: int = 5) -> dict:
+    """Device ms of each port kernel one call of ``fn`` launches, by the
+    kernel's name."""
+    rows = {}
+    for key, ms in profiled_ms(fn, calls).items():
+        name = re.search(r"bwd_[a-z0-9_]+", key)
+        if name:
+            rows[name.group(0)] = rows.get(name.group(0), 0.0) + ms
     return rows
 
 
 def check_flash_bwd() -> dict:
     """The backward kernel's dq, dk, dv (and the forward's log-sum-exp)
     against the plain versions, measured as check_flash measures the
-    forward, and two calls bit-equal, on the route bwd_tile_config names;
-    then its time at the path's shape beside its bound and SDPA's backward
-    (SDPA's forward plus backward less its forward, eager, CUDA events), and
-    each of its kernels' times (the D pre-pass, dK/dV, dQ)."""
-    main = None
+    forward (max abs and relative L2), and two calls bit-equal, on the route
+    bwd_tile_config names; then, for each of FLASH_BWD_ROWS, its time beside
+    its bound and SDPA's backward (the device time of the kernels
+    ``autograd.grad`` of one SDPA forward launches, from torch.profiler; the
+    eager forward plus backward less forward is logged beside it), and each
+    of its kernels' times (the D pre-pass, dK/dV, dQ)."""
+    rows = {}
     for b, s, h, hkv, hd, causal, window, cap, dt, tol in FLASH_BWD_CASES:
         q = randn((b, s, h, hd), dt, seed=11)
         k = randn((b, s, hkv, hd), dt, seed=12)
@@ -759,19 +863,24 @@ def check_flash_bwd() -> dict:
         check(equal, f"flash_attention_bwd: two calls differ (B={b} S={s} hd={hd})")
         del again
         want = ref.flash_attention_bwd(q, k, v, do, **mask)
-        errs = []
+        errs, rels = [], []
         for name, got, exp in zip(("dq", "dk", "dv"), grads, want):
             errs.append(float((got.float() - exp.float()).abs().max()))
+            rels.append(rel_err(got, exp))
             torch.testing.assert_close(got.float(), exp.float(), atol=tol, rtol=tol,
                                        msg=f"flash_attention_bwd {name}")
         log(f"flash_bwd B={b} S={s} H={h} Hkv={hkv} hd={hd} causal={causal} window={window} "
             f"softcap={cap} {str(dt)[6:]}, route {bwd_tile_config(hd, dt)[0]} (forward "
             f"{fwd_route(hd, dt)[0]}): max abs err dq "
             f"{errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g}, lse {lse_err:.3g} (tol {tol:g}); "
-            f"two calls bit-equal {equal}")
+            f"relative L2 dq {rels[0]:.3g} dk {rels[1]:.3g} dv {rels[2]:.3g} (tol "
+            f"{ATTN_REL_TOL:g}); two calls bit-equal {equal}")
+        check(max(rels) <= ATTN_REL_TOL, f"flash_attention_bwd B={b} S={s} hd={hd}: relative "
+              f"L2 {rels}")
         del grads, want
         free()
-        if main is None:
+        name = FLASH_BWD_ROWS.get((b, s, h, hkv, hd, causal)) if dt == torch.bfloat16 else None
+        if name:
             fb, fby = flash_bwd_bound(b, s, h, hkv, hd, causal, window, q.element_size())
             sdpa = torch.nn.functional.scaled_dot_product_attention
             qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
@@ -779,30 +888,35 @@ def check_flash_bwd() -> dict:
 
             def sdpa_fwd():
                 with torch.no_grad():
-                    sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+                    sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
 
             def sdpa_fwd_bwd():
-                torch.autograd.grad(sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
+                torch.autograd.grad(sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True),
                                     (qt, kt, vt), dot)
 
             lib_fwd = time_ms(sdpa_fwd, 10)
             lib_both = time_ms(sdpa_fwd_bwd, 10)
-            main = dict(
+            lib_out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+            lib_parts = profiled_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                                                retain_graph=True))
+            row = rows[name] = dict(
                 max_abs_err=max(errs),
-                ms=device_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do), 10),
-                plain_ms=time_ms(lambda: ref.flash_attention_bwd(q, k, v, do), 1, 1),
-                bound_ms=fb, bound_by=fby, library_ms=lib_both - lib_fwd)
-            parts = kernel_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do))
-            log(f"flash_attention_bwd (2 x 4096, 32/8 heads, hd 128, causal, bf16, route "
-                f"{bwd_tile_config(hd, dt)[0]}): {main['ms']:.4f} ms, plain "
-                f"{main['plain_ms']:.4f} ms, bound {main['bound_ms']:.4f} ms ({fby}), "
-                f"scaled_dot_product_attention backward {main['library_ms']:.4f} ms (forward + "
-                f"backward {lib_both:.4f} less forward {lib_fwd:.4f}, eager); by kernel "
-                + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()))
-            del qt, kt, vt, dot
+                ms=device_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do, **mask), 10),
+                plain_ms=time_ms(lambda: ref.flash_attention_bwd(q, k, v, do, **mask), 1, 1),
+                bound_ms=fb, bound_by=fby, library_ms=sum(lib_parts.values()))
+            parts = kernel_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do, **mask))
+            log(f"{name} ({b} x {s}, {h}/{hkv} heads, hd {hd}, "
+                f"{'causal' if causal else 'non-causal'}, bf16, route "
+                f"{bwd_tile_config(hd, dt)[0]}): {row['ms']:.4f} ms, plain "
+                f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({fby}), "
+                f"scaled_dot_product_attention backward {row['library_ms']:.4f} ms on the device ("
+                + ", ".join(f"{k[:60]} {v:.4f}" for k, v in lib_parts.items())
+                + f"; eager forward + backward {lib_both:.4f} less forward {lib_fwd:.4f}); "
+                f"by kernel " + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()))
+            del qt, kt, vt, dot, lib_out
         del q, k, v, do, out, lse
         free()
-    return {"flash_attention_bwd": main}
+    return rows
 
 
 DECODE_CASES = [
@@ -999,7 +1113,12 @@ SSD_BWD_CASES = [
     (2, 512, 8, 64, 128, 256, torch.bfloat16, -1.0, True),      # the final state's gradient
     (4, 32, 8, 16, 16, 16, torch.float32, None, False),         # the smoke model's shape
     (2, 192, 3, 64, 128, 64, torch.float32, -1.0, True),
+    (2, 4096, 128, 64, 16, 256, torch.bfloat16, None, False),  # jamba's mamba layers
 ]
+# The rows of the kernels line the SSD backward gives: mamba2's training
+# shape, and jamba-v0.1-52b's (128 heads of 64, N 16) on a row of its own.
+SSD_BWD_ROWS = {(2, 4096, 64, 64, 128, 256): "ssd_scan_bwd",
+                (2, 4096, 128, 64, 16, 256): "ssd_scan_bwd_jamba"}
 
 
 def ssd_bwd_bound(b, s, h, p, n, q, itemsize):
@@ -1022,9 +1141,9 @@ def ssd_bwd_bound(b, s, h, p, n, q, itemsize):
 def check_ssd_bwd() -> dict:
     """The forward's states and the backward kernel's five gradients against
     the plain versions (on bf16, also the tensor-core route's per-chunk state
-    gradient); two calls are bit-equal; then its time at the training path's
-    shape beside its bound."""
-    row = None
+    gradient); two calls are bit-equal; then, for each of SSD_BWD_ROWS, its
+    time beside its bound."""
+    rows = {}
     for b, s, h, p, n, chunk, dt, a_log, with_ds in SSD_BWD_CASES:
         args = ssd_inputs(b, s, h, p, n, dt, seed=40, a_log=a_log)
         dy = randn((b, s, h, p), torch.float32, 45)
@@ -1066,24 +1185,27 @@ def check_ssd_bwd() -> dict:
             f"{' slow decay' if a_log == -4.0 else ''}{' dstate' if with_ds else ''}: relative "
             f"L2 {', '.join(f'{k} {v:.3g}' for k, v in errs.items())} (tol "
             f"{SSD_BWD_TOL[dt]:g}{fma}){dh_note}; two calls bit-equal")
-        if row is None:
+        name = SSD_BWD_ROWS.get((b, s, h, p, n, chunk)) if dt == torch.bfloat16 else None
+        if name:
             (sb, sby), flops, fma_ms = ssd_bwd_bound(b, s, h, p, n, chunk, 2)
-            row = dict(max_abs_err=max(float((g.float() - w.float()).abs().max())
-                                       for g, w in zip(grads, want)),
-                       ms=device_ms(lambda: ssd_scan_bwd_cuda(*args, states, dy, chunk=chunk), 3),
-                       plain_ms=time_ms(lambda: ref.ssd_chunked_bwd(
-                           *args, dy, chunk=chunk, states=states), 2, 1),
-                       bound_ms=sb, bound_by=sby, library_ms=None)
+            check(route == "mma", f"{name}: the {route} route")
+            row = rows[name] = dict(
+                max_abs_err=max(float((g.float() - w.float()).abs().max())
+                                for g, w in zip(grads, want)),
+                ms=device_ms(lambda: ssd_scan_bwd_cuda(*args, states, dy, chunk=chunk), 3),
+                plain_ms=time_ms(lambda: ref.ssd_chunked_bwd(
+                    *args, dy, chunk=chunk, states=states), 2, 1),
+                bound_ms=sb, bound_by=sby, library_ms=None)
             fwd_ms = device_ms(lambda: ssd_scan_cuda(*args, chunk=chunk), 10)
             fwd_states_ms = device_ms(lambda: ssd_scan_cuda(*args, chunk=chunk, states=True), 10)
-            log(f"ssd_scan_bwd (x {b} x {s} x {h} x {p} bf16, N {n}, chunk {chunk}): "
+            log(f"{name} (x {b} x {s} x {h} x {p} bf16, N {n}, chunk {chunk}, route {route}): "
                 f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound {sb:.4f} ms ({sby}; "
                 f"{flops / 1e9:.3f} GFLOP at the bf16 peak), f32 FMA bound {fma_ms:.4f} ms; "
                 f"the forward at this shape {fwd_ms:.4f} ms, with its states "
                 f"{fwd_states_ms:.4f} ms")
         del args, dy, ds, states, grads, want, again
         free()
-    return {"ssd_scan_bwd": row}
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1648,28 +1770,145 @@ def _train_state(lm, rc: RunConfig, plan):
     return state, build_hapi_train_step(lm, rc, plan)
 
 
-class plain_ssd_backward:
-    """Within the block, SSDScanFn's backward on the card runs the plain
-    version, ref.ssd_chunked_bwd, on the card tensors instead of the kernel."""
+class plain_backward:
+    """Within the block, the backward kernel of ``cfg``'s family on the card
+    (the SSD scan's for the SSM, flash attention's for the others) runs its
+    plain version on the card tensors instead (ref.ssd_chunked_bwd,
+    ref.flash_attention_bwd)."""
+
+    def __init__(self, cfg):
+        self.module, self.name = ((ssd_scan, "ssd_scan_bwd_cuda") if cfg.family == "ssm"
+                                  else (flash, "flash_attention_bwd_cuda"))
 
     def __enter__(self):
-        self.kernel = ssd_scan.ssd_scan_bwd_cuda
-        ssd_scan.ssd_scan_bwd_cuda = (
-            lambda x, dtA, dt, B_, C_, states, dy, dstate=None, *, chunk=256:
-            ref.ssd_chunked_bwd(x, dtA, dt, B_, C_, dy, dstate, chunk=chunk, states=states))
+        self.kernel = getattr(self.module, self.name)
+        if self.module is ssd_scan:
+            plain = (lambda x, dtA, dt, B_, C_, states, dy, dstate=None, *, chunk=256:
+                     ref.ssd_chunked_bwd(x, dtA, dt, B_, C_, dy, dstate, chunk=chunk,
+                                         states=states))
+        else:
+            plain = (lambda q, k, v, out, lse, dout, **mask:
+                     ref.flash_attention_bwd(q, k, v, dout, **mask))
+        setattr(self.module, self.name, plain)
         return self
 
     def __exit__(self, *exc):
-        ssd_scan.ssd_scan_bwd_cuda = self.kernel
+        setattr(self.module, self.name, self.kernel)
+
+
+# The 2-block card-vs-CPU train steps: (arch, positions a sample: tokens; for
+# whisper its frames, its decoder reading dec_seq tokens; for llava the 576
+# patches and 128 tokens of text). moonshot's runs at 512 tokens, the
+# length of its serving and MoE-layer checks (FULL_WIDTH_SERVING,
+# check_moe_layer), at which MOE_ROUTE_AGREE was set: there each of the 64
+# experts draws about 96 of the batch's 6,144 top-6 slots, so one token that
+# joins or leaves an expert moves that expert's gradient by about 1% of its
+# tokens; at 128 tokens an expert draws about 24, and single tokens decide
+# the per-expert readings below.
+FULL_WIDTH_TRAINING = ((ARCH, 128), (SSM_ARCH, 512), (MOE_ARCH, 512),
+                       (WHISPER_ARCH, WHISPER_FRAMES), (LLAVA_ARCH, 576 + 128))
+# moonshot's first moments, card vs CPU. The int8 boundary turns the
+# devices' bf16 differences in the frozen block's output into whole code
+# steps (1/127 of a tile's range) where a value lies next to a rounding
+# boundary, which flips the top-6 sets of a few percent of the trainable
+# block's tokens: 3.5-4.3% at 2 x 512 on an H100 (6-9% at 2 x 128), against
+# 0.4-0.8% in the frozen block (0.8-1.6%). A flipped token swaps an expert of
+# weight about 0.12, which moves the gradients of the experts it joins or
+# leaves, and the router's, by that token's share of theirs, not by a
+# rounding. The routed tensors (MOE_ROUTED: the router, the experts, and
+# ln_ffn, the norm whose output the router reads) are held to MOE_TRAIN_TOL
+# relative L2 over the tensor (0.0784-0.0897 measured at 2 x 512, the router
+# the worst, ln_ffn 0.0802; 0.132 at 2 x 128), and each expert's slice of
+# w_gate, w_up and w_down to MOE_EXPERT_TOL (0.176 at worst). Every other
+# tensor moves only through the flipped tokens' outputs downstream of the
+# MoE: 0.037 at worst (the attention's wq; the unembedding 0.0232), so
+# MOE_REST_TOL. A wrong expert gather planted on the card
+# (wrong_expert_gather) must break these holds: it read 1.38-1.40 on
+# expert 0's slices, 0.235-0.266 over the routed tensors and 0.065-0.136
+# over the rest (an H100; PERF.md §6).
+MOE_ROUTED = ("ln_ffn.scale", "moe.router", "moe.w_gate", "moe.w_up", "moe.w_down")
+MOE_EXPERTS = MOE_ROUTED[2:]
+MOE_TRAIN_TOL = 0.2
+MOE_EXPERT_TOL = 0.5
+MOE_REST_TOL = 5e-2
+# whisper's first moments card vs CPU: 0.0203-0.0236 relative L2 for its six
+# worst tensors on an H100 (the encoder's and the decoder's q and k
+# projections, an MLP, a norm), and the same with the plain flash backward
+# on the card (0.0236): the card's other bf16 operations against the CPU's,
+# amplified where the softmax over 1,500 frames is near uniform at init and
+# the gradient of q and k is a small difference of large terms.
+ENCDEC_TRAIN_TOL = 4e-2
+# The first moments' card-vs-CPU tolerance by family (moonshot's routed
+# tensors apart); SERVE_AGREE_TOL else.
+MOMENT_TOL = {"moe": MOE_REST_TOL, "encdec": ENCDEC_TRAIN_TOL}
+PLANTED_RUN = "cuda, wrong expert gather"
+
+
+class wrong_expert_gather:
+    """A planted fault: on ``device`` (the card), the MoE dispatch fills
+    expert 0's buffer with expert 1's tokens (its gather reads the wrong
+    expert's rows), in every moe_apply call within the block."""
+
+    def __init__(self, device: str = "cuda"):
+        self.device = device
+
+    def __enter__(self):
+        self.route = layers.moe_route
+
+        def route(p, x, cfg):
+            r = self.route(p, x, cfg)
+            if x.device.type != self.device:
+                return r
+            buf_tok, valid = r.buf_tok.clone(), r.valid.clone()
+            buf_tok[:, 0], valid[:, 0] = r.buf_tok[:, 1], r.valid[:, 1]
+            return r._replace(buf_tok=buf_tok, valid=valid)
+
+        layers.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        layers.moe_route = self.route
+
+
+def moment_readings(card: dict, cpu: dict, family: str) -> dict:
+    """Relative L2 of each first moment, card against CPU, and for the MoE
+    each expert tensor's worst expert slice (key ``name[expert]``); with the
+    tolerance each reading is held to."""
+    out = {}
+    for k in cpu:
+        routed = family == "moe" and k.endswith(MOE_ROUTED)
+        out[k] = (rel_err(card[k], cpu[k]),
+                  MOE_TRAIN_TOL if routed else MOMENT_TOL.get(family, SERVE_AGREE_TOL))
+        if family == "moe" and k.endswith(MOE_EXPERTS):
+            out[f"{k}[expert]"] = (max(rel_err(a, b) for a, b in zip(card[k], cpu[k])),
+                                   MOE_EXPERT_TOL)
+    return out
+
+
+def worst_by_group(readings: dict) -> dict:
+    """The largest reading of each group of tensors: the MoE's routed
+    tensors, its experts' slices, and the rest."""
+    groups = {}
+    for k, (e, _) in readings.items():
+        g = ("expert slice" if k.endswith("[expert]") else
+             "routed" if k.endswith(MOE_ROUTED) else "rest")
+        if e > groups.get(g, ("", -1.0))[1]:
+            groups[g] = (k, round(e, 4))
+    return groups
 
 
 def check_full_width_training(arch: str = ARCH, seq: int = 128) -> None:
     """One Hapi train step of a 2-block full-width model in bf16 on the card
-    (kernels) and on the CPU (plain versions), from the same weights: loss,
-    gradient norm, first moment and the updates agree. For the SSM, the card
-    step also runs with the plain SSD backward on the card, which isolates
-    the backward kernel: the first moments agree to KERNEL_STEP_TOL."""
-    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    (kernels) and on the CPU (plain versions), from the same weights and
+    batch (an encoder-decoder's two encoder and two decoder layers): loss,
+    gradient norm, first moment and the updates agree, and the card's
+    launches, the backward kernels' by shape, are exact. For the SSM and the
+    encoder-decoder, the card step also runs with the plain version of its
+    backward kernel on the card, which isolates the kernel: the first
+    moments agree to KERNEL_STEP_TOL. For the MoE, the share of routing
+    decisions that agree is printed and held, and a card step with a wrong
+    expert gather planted must break the first moments' holds."""
+    cfg = two_layers(get_config(arch))
     shape = ShapeConfig("agree", "train", seq_len=seq, global_batch=2)
     hapi = HapiConfig(compress_transfer=True, cos_batch=1, cos_batch_min=1)
     rc = RunConfig(model=cfg, shape=shape, hapi=hapi,
@@ -1677,69 +1916,104 @@ def check_full_width_training(arch: str = ARCH, seq: int = 128) -> None:
                                      total_steps=5))
     plan = plan_tiers(cfg, shape, hapi)
     check((plan.split, plan.cos_batch) == (1, 1), f"2-block train plan {plan}")
+    want, want_fwd, want_bwd = train_launches("fused", *layer_kernels(cfg, seq, plan.split), 2,
+                                              cos=1)
     lm_gpu = build_model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(3))
     lm_cpu = copy.deepcopy(lm_gpu).cpu()
     runs = [("cuda", lm_gpu), ("cpu", lm_cpu)]
-    if cfg.family == "ssm":
-        runs.append(("cuda, plain SSD backward", copy.deepcopy(lm_gpu)))
-    toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, seq))
-    out = {}
+    if cfg.family in PLAIN_BACKWARD_RUN:
+        runs.append((PLAIN_RUN, copy.deepcopy(lm_gpu)))
+    if cfg.family == "moe":
+        runs.append((PLANTED_RUN, copy.deepcopy(lm_gpu)))
+    req = pushdown_request(cfg, 2, seq, 9)
+    out, routes = {}, {}
     for dev, lm in runs:
-        t = torch.from_numpy(toks).to(dev.split(",")[0])
+        batch = {k: t.to(dev.split(",")[0]) for k, t in req.items()}
         state, step = _train_state(lm, rc, plan)
         before = {k: p.detach().float().cpu() for k, p in state.trainable.named_parameters()}
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        if dev == "cuda":
-            state, metrics = step(state, {"tokens": t, "labels": t})
-        else:
-            with plain_ssd_backward():
-                state, metrics = step(state, {"tokens": t, "labels": t})
+        with RoutingLog(lm) as log_routes, (plain_backward(cfg) if dev == PLAIN_RUN else
+                                            wrong_expert_gather() if dev == PLANTED_RUN
+                                            else contextlib.nullcontext()):
+            state, metrics = step(state, batch)
+        routes[dev] = log_routes.calls
         loss = float(metrics["loss"])
         if dev == "cuda":
-            # 2 chunks of one sample (COS batch 1), each one trainable block's backward.
-            bwd = "ssd_scan_bwd" if cfg.family == "ssm" else "flash_attention_bwd"
-            counts = ops.launch_counts()
-            check(counts[bwd] == 2, f"{arch} train step on the card: launches {counts}")
+            counts = {k: n for k, n in ops.launch_counts().items() if n}
+            shapes = dict(flash.fwd_shapes), dict(flash.bwd_shapes)
+            check(counts == want and shapes == (want_fwd, want_bwd),
+                  f"{arch} train step on the card: launches {counts} by shape {shapes}, "
+                  f"expected {want} by shape {(want_fwd, want_bwd)}")
         out[dev] = dict(loss=loss, gnorm=float(metrics["grad_norm"]),
                         m={k: x.float().cpu() for k, x in state.opt.m.items()},
                         delta={k: p.detach().float().cpu() - before[k]
                                for k, p in state.trainable.named_parameters()})
         log(f"full width train step, {arch} 2 blocks, batch 2 x {seq} on {dev}: loss {loss:.6f}, "
             f"grad norm {out[dev]['gnorm']:.6g} ({time.perf_counter() - t0:.1f} s)"
-            f"{f', launches {counts}' if dev == 'cuda' else ''}")
-        del state, step
+            f"{f', launches {counts}, flash by shape {shapes}' if dev == 'cuda' else ''}")
+        del state, step, batch
     c, h = out["cuda"], out["cpu"]
     loss_diff = abs(c["loss"] - h["loss"])
     gn_err = abs(c["gnorm"] - h["gnorm"]) / h["gnorm"]
-    errs = {k: rel_err(c["m"][k], h["m"][k]) for k in h["m"]}
+    readings = moment_readings(c["m"], h["m"], cfg.family)
+    errs = {k: e for k, (e, _) in readings.items()}
     cancelling = {k: e for k, e in errs.items() if k.endswith(CANCELLING)}
-    worst = max((k for k in errs if k not in cancelling), key=errs.get)
+    held = {k: r for k, r in readings.items() if k not in cancelling}
+    worst = max(held, key=lambda k: held[k][0] / held[k][1])   # nearest its tolerance
+    tol = held[worst][1]
+    ranked = sorted(errs.items(), key=lambda kv: -kv[1])[:6]
     signs = torch.cat([(torch.sign(c["delta"][k]) == torch.sign(h["delta"][k])).flatten()
                        for k in h["delta"]]).float().mean().item()
+    routing = ""
+    if routes["cuda"]:
+        same_set, kept = routing_agreement(routes["cuda"], routes["cpu"])
+        by_call = [round(routing_agreement([a], [b])[0], 4)
+                   for a, b in zip(routes["cuda"], routes["cpu"])]
+        routing = (f"; {len(routes['cuda'])} MoE calls: top-k sets agree for {same_set:.5f} "
+                   f"of tokens (at least {MOE_ROUTE_AGREE:g}; by call {by_call}), slots kept "
+                   f"alike {kept:.5f}")
+    cancel_note = f", cancelling {cancelling} (tol {CANCELLING_TOL:g})" if cancelling else ""
     log(f"full width train step agreement, {arch}, card vs cpu: |loss| {loss_diff:.3g} (tol "
         f"{LOSS_TOL:g}), grad norm relative {gn_err:.3g} (tol {SERVE_AGREE_TOL:g}), first "
-        f"moment relative L2 (worst tensor, {worst}) {errs[worst]:.3g} (tol "
-        f"{SERVE_AGREE_TOL:g}){f', cancelling {cancelling} (tol {CANCELLING_TOL:g})' if cancelling else ''}"
-        f", update signs agree in {signs:.5f} of elements (at least {TRAIN_SIGN_AGREE:g})")
+        f"moment relative L2 (nearest its tolerance, {worst}) {errs[worst]:.3g} "
+        f"(tol {tol:g}){cancel_note}"
+        f", update signs agree in {signs:.5f} of elements (at least {TRAIN_SIGN_AGREE:g}); "
+        f"worst tensors {[(k, round(e, 4)) for k, e in ranked]}"
+        f"{f', worst by group {worst_by_group(readings)}' if cfg.family == 'moe' else ''}"
+        f"{routing}")
+    if PLANTED_RUN in out:
+        planted = moment_readings(out[PLANTED_RUN]["m"], h["m"], cfg.family)
+        broken = {k: round(e, 4) for k, (e, t) in planted.items() if e > t}
+        log(f"full width train step, {arch}, a wrong expert gather planted on the card vs cpu: "
+            f"loss {out[PLANTED_RUN]['loss']:.6f}, worst by group {worst_by_group(planted)}; "
+            f"beyond their tolerances {broken}")
+    if PLAIN_RUN in out:
+        pl = out[PLAIN_RUN]
+        kerrs = {k: rel_err(c["m"][k], pl["m"][k]) for k in pl["m"]}
+        kworst = max(kerrs, key=kerrs.get)
+        plain_vs_cpu = {k: rel_err(pl["m"][k], h["m"][k]) for k in h["m"]}
+        log(f"full width train step, {arch} on the card, the {PLAIN_BACKWARD_RUN[cfg.family]} "
+            f"backward kernel vs its plain version: loss {c['loss']:.6f} / {pl['loss']:.6f}, "
+            f"first moment relative L2 (worst tensor, {kworst}) {kerrs[kworst]:.3g} (tol "
+            f"{KERNEL_STEP_TOL[cfg.family]:g}); card with the plain version vs cpu, worst tensor "
+            f"{max(plain_vs_cpu.values()):.3g} ({worst} {plain_vs_cpu[worst]:.3g}); "
+            f"{', '.join(cancelling)} bit-equal: "
+            f"{all(torch.equal(c['m'][k], pl['m'][k]) for k in cancelling)}")
     check(math.isfinite(c["loss"]) and loss_diff <= LOSS_TOL, "train step: losses disagree")
     check(gn_err <= SERVE_AGREE_TOL, "train step: grad norms disagree")
-    check(errs[worst] <= SERVE_AGREE_TOL, "train step: gradients disagree")
+    check(all(e <= t for e, t in held.values()), "train step: gradients disagree")
+    if PLANTED_RUN in out:
+        check(bool(broken), "a wrong expert gather passes the train step's holds")
     check(all(e <= CANCELLING_TOL for e in cancelling.values()),
           f"train step: cancelling gradients disagree {cancelling}")
     check(signs >= TRAIN_SIGN_AGREE, "train step: updates disagree")
-    if cfg.family == "ssm":
-        pl = out["cuda, plain SSD backward"]
-        kerrs = {k: rel_err(c["m"][k], pl["m"][k]) for k in pl["m"]}
-        kworst = max(kerrs, key=kerrs.get)
-        log(f"full width train step, {arch} on the card, SSD backward kernel vs its plain "
-            f"version: loss {c['loss']:.6f} / {pl['loss']:.6f}, first moment relative L2 "
-            f"(worst tensor, {kworst}) {kerrs[kworst]:.3g} (tol {KERNEL_STEP_TOL:g}); "
-            f"{', '.join(cancelling)} bit-equal: "
-            f"{all(torch.equal(c['m'][k], pl['m'][k]) for k in cancelling)}")
+    if routes["cuda"]:
+        check(same_set >= MOE_ROUTE_AGREE, f"{arch} train step: routing disagrees")
+    if PLAIN_RUN in out:
         check(c["loss"] == pl["loss"], "train step: the forward differs between the runs")
-        check(kerrs[kworst] <= KERNEL_STEP_TOL, "train step: the SSD backward kernel disagrees "
-              "with its plain version")
+        check(kerrs[kworst] <= KERNEL_STEP_TOL[cfg.family],
+              "train step: the backward kernel disagrees with its plain version")
         check(all(torch.equal(c["m"][k], pl["m"][k]) for k in cancelling),
               "train step: a cancelling gradient depends on the SSD backward")
     del lm_gpu, lm_cpu, out, runs
@@ -1749,19 +2023,28 @@ def check_full_width_training(arch: str = ARCH, seq: int = 128) -> None:
 class StepClock:
     """Wraps the train step's extract and AdamW (looked up in
     ``repro_torch.train.steps`` at each step) to time them, synchronised, and
-    to count the wire bytes extract emits; tune is the rest of the step."""
+    to count the wire bytes extract emits; tune is the rest of the step less
+    ``capture_s``. With ``capture``, the gradient AdamW is handed for the
+    first trainable tensor whose name ends so is kept, in bf16 on the host,
+    in ``grads`` (``capture_s``: the time that takes)."""
 
-    def __init__(self):
+    def __init__(self, capture: Optional[str] = None):
         self.extract_fn = train_steps.make_extract_fn
         self.adamw = train_steps.adamw_update
+        self.capture, self.grads = capture, []
         self.reset()
 
     def reset(self):
-        self.extract_s = self.adamw_s = 0.0
+        self.extract_s = self.adamw_s = self.capture_s = 0.0
         self.wire = 0
 
     def _timed(self, fn, attr):
         def run(*a, **k):
+            if attr == "adamw_s" and self.capture:
+                t0 = time.perf_counter()
+                name = next(n for n in a[1] if n.endswith(self.capture))
+                self.grads.append(a[1][name].to(torch.bfloat16).cpu())
+                self.capture_s += time.perf_counter() - t0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*a, **k)
@@ -1783,67 +2066,83 @@ class StepClock:
         train_steps.adamw_update = self.adamw
 
 
-def train_slice(arch: str = ARCH, layers: int = TRAIN_LAYERS, split: int = 6,
-                wire_bytes_want: int = WIRE_BYTES, launches_want=None) -> dict:
-    """The training main path at full width: mistral-nemo-12b cut to 8
-    blocks (or ``arch`` at ``layers``, split ``split``), bf16, a batch of
-    4 x 4,096; 4 fused-path steps on one repeated batch, then 1 coarse-path
-    step. Returns the launches of each kernel."""
-    launches_want = launches_want or TRAIN_LAUNCHES
-    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
-    shape = ShapeConfig("train", "train", seq_len=4096, global_batch=4)
+TrainRun = collections.namedtuple("TrainRun", "launches fwd_shapes bwd_shapes wire grads")
+# The trainable tensor whose gradients a train path keeps for the
+# collectives phase: llava's first trainable block's w_up (4,096 x 14,336).
+TRAIN_CAPTURE = {LLAVA_ARCH: ".mlp.w_up"}
+
+
+def train_slice(arch: str = ARCH) -> TrainRun:
+    """The training main path at full width, ``TRAIN_PATHS[arch]``: bf16,
+    the int8 boundary, COS batch 2; 4 fused-path steps (microbatch 2) on one
+    repeated batch, then 1 coarse-path step (microbatch 1). The planner's
+    split and COS batch, the wire bytes, the launches (by shape for flash,
+    forward and backward) and the frozen prefix are checked, and the loss
+    must fall. Returns the run's launches of each kernel, its flash launches
+    by shape and the wire bytes of a step."""
+    path = TRAIN_PATHS[arch]
+    cfg = get_config(arch)
+    if path.layers:
+        cfg = dataclasses.replace(cfg, n_layers=path.layers)
+    shape = ShapeConfig("train", "train", seq_len=path.seq, global_batch=path.batch)
     hapi = HapiConfig(compress_transfer=True, cos_batch=2, cos_batch_min=1)
     tc = TrainConfig(microbatch=2, learning_rate=TRAIN_LR, warmup_steps=1, total_steps=5)
     rc = RunConfig(model=cfg, shape=shape, hapi=hapi, train=tc)
     plan = plan_tiers(cfg, shape, hapi)
-    log(f"train plan: split {plan.split} of {cfg.n_blocks} blocks, cos_batch {plan.cos_batch}, "
-        f"compress {plan.compress}; {plan.decision.reason}")
-    check((plan.split, plan.cos_batch, plan.compress) == (split, 2, True),
+    log(f"train plan {arch}: split {plan.split} of {cfg.n_blocks} blocks ("
+        f"{'the freeze index' if plan.split == cfg.freeze_index else 'Alg. 1'}), cos_batch "
+        f"{plan.cos_batch}, compress {plan.compress}; {plan.decision.reason}")
+    check((plan.split, plan.cos_batch, plan.compress) == (path.split, 2, True),
           "unexpected train plan")
-    family = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
-    for kind in ("fused", "coarse"):
-        derived = train_launches(kind, cfg.n_blocks, plan.split, family, f"{family}_bwd")
-        check(derived == launches_want[kind], f"{kind} launches {derived}, expected "
-              f"{launches_want[kind]}")
+    check(plan.decision.wire_bytes_per_iter == path.wire, "Alg. 1's wire bytes")
+    parts = layer_kernels(cfg, path.seq, plan.split)
+    want = {kind: train_launches(kind, *parts, path.batch) for kind in ("fused", "coarse")}
+    for kind, launches in TRAIN_LAUNCHES.get(arch, {}).items():
+        check(want[kind][0] == launches, f"{kind} launches {want[kind][0]}, worked out by "
+              f"hand {launches}")
     free()
     lm = build_model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
     state, step = _train_state(lm, rc, plan)
     n_train = sum(p.numel() for p in state.trainable.parameters())
     frozen0 = {k: v.cpu() for k, v in state.frozen.state_dict().items()}
-    toks = torch.from_numpy(
-        np.random.default_rng(200).integers(0, cfg.vocab_size, (4, 4096))).cuda()
-    batch = {"tokens": toks, "labels": toks}
-    log(f"{arch} at {layers} blocks: {n_train} trainable parameters ({layers - plan.split} "
-        f"blocks, final_norm, head), {sum(v.numel() for v in frozen0.values())} frozen")
+    batch = pushdown_request(cfg, path.batch, path.seq, 200)
+    log(f"{arch} at {cfg.n_layers} layers ({cfg.n_blocks} blocks), batch {path.batch} x "
+        f"{path.seq}: {n_train} trainable parameters (the blocks past {plan.split}, the norms, "
+        f"the head), {sum(v.numel() for v in frozen0.values())} frozen")
     losses, peaks = [], []
-    total = dict.fromkeys(KERNELS, 0)
     ops.reset_launch_counts()
-    with StepClock() as clock:
+    with StepClock(TRAIN_CAPTURE.get(arch)) as clock:
         for i, kind in enumerate(["fused"] * TRAIN_FUSED_STEPS + ["coarse"]):
             if kind == "coarse":
                 rc = rc.replace(train=dataclasses.replace(tc, microbatch=1))
                 step = build_hapi_train_step(lm, rc, plan)
             clock.reset()
             before = ops.launch_counts()
+            shapes0 = collections.Counter(flash.fwd_shapes), collections.Counter(flash.bwd_shapes)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             state, metrics = step(state, batch)
             loss = float(metrics["loss"])
-            step_s = time.perf_counter() - t0
+            step_s = time.perf_counter() - t0 - clock.capture_s
             rose = {k: v - before[k] for k, v in ops.launch_counts().items()}
-            want = {k: launches_want[kind].get(k, 0) for k in rose}
+            shapes = tuple(dict(collections.Counter(now) - was) for now, was in
+                           zip((flash.fwd_shapes, flash.bwd_shapes), shapes0))
+            counts_want, *shapes_want = want[kind]
             log(f"train step {i + 1} ({kind}): {1e3 * step_s:.1f} ms (extract "
                 f"{1e3 * clock.extract_s:.1f}, tune forward+backward "
                 f"{1e3 * (step_s - clock.extract_s - clock.adamw_s):.1f}, AdamW "
                 f"{1e3 * clock.adamw_s:.1f}), {arch}, loss {loss:.6f}, grad norm "
                 f"{float(metrics['grad_norm']):.4g}, lr {float(metrics['lr']):.3g}, wire "
                 f"{clock.wire} bytes, peak device memory {torch.cuda.max_memory_allocated()} "
-                f"bytes, launches {rose}")
+                f"bytes, launches {rose}, flash by shape (forward, backward) {shapes}")
             peaks.append(torch.cuda.max_memory_allocated())
             check(math.isfinite(loss), f"train step {i + 1}: loss {loss}")
-            check(clock.wire == wire_bytes_want, f"train step {i + 1}: wire {clock.wire}")
-            check(rose == want, f"train step {i + 1}: launches {rose}, expected {want}")
+            check(clock.wire == path.wire, f"train step {i + 1}: wire {clock.wire}")
+            check(rose == {k: counts_want.get(k, 0) for k in rose},
+                  f"train step {i + 1}: launches {rose}, expected {counts_want}")
+            check(list(shapes) == shapes_want, f"train step {i + 1}: flash launches by shape "
+                  f"{shapes}, expected {shapes_want}")
             losses.append(loss)
     check(losses[TRAIN_FUSED_STEPS - 1] < losses[0], f"loss did not fall: {losses}")
     check(int(state.opt.step) == TRAIN_FUSED_STEPS + 1, "optimizer step count")
@@ -1851,17 +2150,26 @@ def train_slice(arch: str = ARCH, layers: int = TRAIN_LAYERS, split: int = 6,
     log(f"train {arch}: losses {[round(x, 6) for x in losses]}; peak device memory over "
         f"the steps {max(peaks)} bytes; frozen prefix unchanged bit for bit: {same}")
     check(same, "the frozen prefix changed")
-    for k, v in ops.launch_counts().items():
-        total[k] += v
+    run = TrainRun(ops.launch_counts(), collections.Counter(flash.fwd_shapes),
+                   collections.Counter(flash.bwd_shapes), clock.wire, clock.grads)
     del lm, state, step, frozen0, batch
     free()
-    return total
+    return run
+
+
+# run_training's smoke configs on the card for the families trained at full
+# width here or not at all (jamba), with the backward kernels each must
+# launch: llava's text after its n_patches patch embeddings.
+TRAIN_DEFAULTS = {MOE_ARCH: ("flash_attention_bwd",),
+                  "jamba-v0.1-52b": ("flash_attention_bwd", "ssd_scan_bwd"),
+                  WHISPER_ARCH: ("flash_attention_bwd",), LLAVA_ARCH: ("flash_attention_bwd",)}
 
 
 def train_defaults() -> None:
     """tests/test_e2e_smoke.py's three scenarios through run_training on the
-    card (the smoke configs: f32, head dim 16); and mamba2, whose suffix
-    trains through the SSD backward kernel: the loss falls."""
+    card (the smoke configs: f32, head dim 16); mamba2, whose suffix trains
+    through the SSD backward kernel; and TRAIN_DEFAULTS' four families,
+    jamba's hybrid backward end to end: the loss falls."""
     out = run_training("qwen3-32b", steps=12, batch=8, seq=32, lr=1e-3, log_every=100)
     first, last = np.mean(out["losses"][:3]), np.mean(out["losses"][-3:])
     log(f"run_training qwen3-32b on the card: losses {[round(x, 4) for x in out['losses']]}")
@@ -1891,6 +2199,18 @@ def train_defaults() -> None:
     check(np.isfinite(out["final_loss"]) and last < first, "mamba2-1.3b: loss did not fall")
     check(counts["ssd_scan_bwd"] > 0 and counts["ssd_scan"] > counts["ssd_scan_bwd"],
           f"mamba2-1.3b: launches {counts}")
+    for arch, kernels in TRAIN_DEFAULTS.items():
+        cfg = get_smoke_config(arch)
+        ops.reset_launch_counts()
+        out = run_training(arch, steps=8, batch=4, seq=32 + cfg.n_patches, lr=1e-3,
+                           log_every=100, dataset_batches=1)
+        counts = ops.launch_counts()
+        first, last = np.mean(out["losses"][:2]), np.mean(out["losses"][-2:])
+        log(f"run_training {arch} on the card (one batch of 4 x {32 + cfg.n_patches} "
+            f"repeated): losses {[round(x, 4) for x in out['losses']]}, launches {counts}")
+        check(bool(np.all(np.isfinite(out["losses"]))) and last < first,
+              f"{arch}: loss did not fall")
+        check(all(counts[k] > 0 for k in kernels), f"{arch}: launches {counts}")
     free()
 
 
@@ -2444,6 +2764,117 @@ def fleet(smi: str, images: np.ndarray, labels: np.ndarray) -> dict:
     return got
 
 
+# ---------------------------------------------------------------------------
+# The collectives: repro_torch.distributed on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+# compressed_psum of real full-width gradients: those the llava train path
+# hands AdamW for its first trainable block's w_up (4,096 x 14,336, kept in
+# the parameter's bf16), one round a step (TRAIN_FUSED_STEPS fused and one
+# coarse), with the residual carried and without it.
+COLLECTIVE_SHAPE = (4096, 14336)
+
+
+def collectives(smi: str, llava: TrainRun) -> dict:
+    """``compressed_psum`` on a one-rank NCCL group (a FileStore in a
+    temporary directory; the group is destroyed at the end): one quantize
+    and one dequantize launched a call, the total and the residual equal bit
+    for bit to the plain versions' composition on the card, and over the
+    llava train path's steps the running sum's error with error feedback
+    below its error without; then ``tier_transfer`` of one llava train
+    step's boundary counts the bytes the train path's StepClock counted and
+    ``decompress_boundary`` gives the kernel's bits on the host's plain
+    version. Returns the launches of each kernel in those calls; the
+    all-gather's and a call's times are taken after."""
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            return _collectives(smi, llava)
+        finally:
+            dist.destroy_process_group()
+
+
+def _collectives(smi: str, llava: TrainRun) -> dict:
+    check(len(llava.grads) == TRAIN_FUSED_STEPS + 1
+          and all(tuple(g.shape) == COLLECTIVE_SHAPE for g in llava.grads),
+          f"the llava train path's gradients {[tuple(g.shape) for g in llava.grads]}")
+    ops.reset_launch_counts()
+    n = math.prod(COLLECTIVE_SHAPE)
+    true_sum, ef_sum, plain_sum = (torch.zeros(COLLECTIVE_SHAPE, device="cuda")
+                                   for _ in range(3))
+    error = None
+    for i, grad in enumerate(llava.grads):
+        x = grad.cuda()
+        before = ops.launch_counts()
+        total, new_error = compressed_psum(x, error=error)
+        rose = {k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]}
+        check(rose == {"quantize_int8": 1, "dequantize_int8": 1},
+              f"compressed_psum round {i}: launches {rose}")
+        carry = x if error is None else x + error
+        local = ref.dequantize_int8(*ref.quantize_int8(carry.reshape(1, n))).reshape(carry.shape)
+        check(torch.equal(total, local.to(x.dtype))
+              and torch.equal(new_error, (carry.float() - local.float()).to(x.dtype)),
+              f"compressed_psum round {i}: not the plain versions' bits")
+        error = new_error
+        true_sum += x.float()
+        ef_sum += total.float()
+        plain_sum += compressed_psum(x)[0].float()
+    errs = {name: s - true_sum for name, s in (("with", ef_sum), ("without", plain_sum))}
+    stats = {name: (float(e.abs().mean()), float(e.mean().abs()), float(e.abs().max()))
+             for name, e in errs.items()}
+    log(f"compressed_psum ({COLLECTIVE_SHAPE[0]} x {COLLECTIVE_SHAPE[1]} bf16, one NCCL rank) "
+        f"of the llava train path's w_up gradients, {len(llava.grads)} steps (mean |g| "
+        f"{[float(g.float().abs().mean()) for g in llava.grads]}): total and residual "
+        f"bit-equal to the plain versions' composition in each round; the running sum's error "
+        f"against the exact sum, mean |e|, |mean e|, max |e|: with error feedback "
+        f"{stats['with']}, without {stats['without']}, mean |e| with / without "
+        f"{stats['with'][0] / stats['without'][0]:.4f}")
+    check(stats["with"][0] < stats["without"][0],
+          f"error feedback did not reduce the running sum's mean error: {stats}")
+    del true_sum, ef_sum, plain_sum, errs, local, carry
+
+    # One llava train step's boundary, (4, 4096, 4096) bf16, over the wire.
+    path = TRAIN_PATHS[LLAVA_ARCH]
+    acts = randn((path.batch, path.seq, get_config(LLAVA_ARCH).d_model), torch.bfloat16,
+                 seed=400) * 3
+    before = ops.launch_counts()
+    payload, wire = tier_transfer(acts, compress=True)
+    host, host_wire = tier_transfer(payload, device=torch.device("cpu"))
+    card_back = decompress_boundary(payload)
+    rose = {k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]}
+    log(f"tier_transfer of a llava train step's boundary {tuple(acts.shape)} bf16: {wire} "
+        f"wire bytes (the train path's StepClock counted {llava.wire} a step), {host_wire} "
+        f"moved to the host; launches {rose}")
+    check(wire == host_wire == llava.wire == path.wire, "tier_transfer's wire bytes")
+    check(host[0].device.type == "cpu" and host[0].dtype == torch.int8, "the host payload")
+    check(torch.equal(decompress_boundary(host), card_back.cpu()),
+          "decompress_boundary: the host's plain version and the kernel differ")
+    check(rose == {"quantize_int8": 1, "dequantize_int8": 1}, f"tier_transfer launches {rose}")
+    del acts, payload, host, card_back
+    launched = ops.launch_counts()
+
+    # The all-gather's time and bytes: the int8 codes and f32 scales of one
+    # call, beside an all-gather of the bf16 gradient itself.
+    q, scales = ops.quantize_int8(x.reshape(1, n))
+    qg, sg, xg = [torch.empty_like(q)], [torch.empty_like(scales)], [torch.empty_like(x)]
+
+    def gather_int8():
+        dist.all_gather(qg, q)
+        dist.all_gather(sg, scales)
+
+    int8_ms = time_ms(gather_int8, 20)
+    bf16_ms = time_ms(lambda: dist.all_gather(xg, x), 20)
+    psum_ms = time_ms(lambda: compressed_psum(x, error=error), 10)
+    log(f"all_gather on one NCCL rank ({smi}): int8 codes and scales "
+        f"{q.numel() + scales.numel() * 4} bytes a rank {int8_ms:.4f} ms; the bf16 gradient "
+        f"{x.numel() * 2} bytes {bf16_ms:.4f} ms; a compressed_psum call {psum_ms:.4f} ms "
+        f"(eager, CUDA events)")
+    del q, scales, qg, sg, xg, x, error, total, new_error
+    free()
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -2465,8 +2896,8 @@ def main() -> int:
                      ("decode", check_decode), ("ssd", check_ssd), ("ssd_bwd", check_ssd_bwd)):
         kernels.update(phase(name, fn))
     phase("full_width", check_full_width)
-    phase("full_width_training", check_full_width_training)
-    phase("full_width_training_ssm", lambda: check_full_width_training(SSM_ARCH, 512))
+    for arch, seq in FULL_WIDTH_TRAINING:
+        phase(f"full_width_training {arch}", lambda a=arch, s=seq: check_full_width_training(a, s))
     phase("moe_layer", check_moe_layer)
     phase("full_width_serving", check_full_width_serving)
     phase("serve_defaults", serve_defaults)
@@ -2476,24 +2907,35 @@ def main() -> int:
     served, served_by_arch = phase("serving", serve_models)
     whisper_pushed, whisper_served, whisper_enc, whisper_cross = phase("whisper", whisper)
     llava_pushed, llava_served = phase("llava", llava)
-    trained = phase("training", train_slice)
-    trained_ssm = phase("training_ssm", lambda: train_slice(
-        SSM_ARCH, get_config(SSM_ARCH).n_layers, 36, SSM_WIRE_BYTES, SSM_TRAIN_LAUNCHES))
+    trained = {arch: phase(f"training {arch}", lambda a=arch: train_slice(a))
+               for arch in TRAIN_PATHS}
     seen, kernels["flash_attention_vit"] = phase("vision", lambda: vision(smi))
     epoch_seen, images, labels = phase("epoch", lambda: epoch(smi))
     fleet_seen = phase("fleet", lambda: fleet(smi, images, labels))
     del images, labels
-    families = (whisper_pushed, whisper_served, llava_pushed, llava_served)
-    launches = {name: pushdown[name] + served[name] + trained[name] + trained_ssm[name]
-                + seen[name] + epoch_seen[name] + fleet_seen[name]
-                + sum(f[name] for f in families) for name in KERNELS}
-    log(f"launches: pushdown {pushdown}, serving {served}, training {trained}, "
-        f"SSM training {trained_ssm}, vision {seen}, epoch {epoch_seen}, fleet {fleet_seen}, "
-        f"whisper pushdown {whisper_pushed}, whisper serving {whisper_served}, llava pushdown "
-        f"{llava_pushed}, llava serving {llava_served}")
+    collected = phase("collectives", lambda: collectives(smi, trained[LLAVA_ARCH]))
+    paths = {"pushdown": pushdown, "serving": served, "vision": seen, "epoch": epoch_seen,
+             "fleet": fleet_seen, "whisper pushdown": whisper_pushed,
+             "whisper serving": whisper_served, "llava pushdown": llava_pushed,
+             "llava serving": llava_served, "collectives": collected,
+             **{f"training {arch}": run.launches for arch, run in trained.items()}}
+    launches = {name: sum(p[name] for p in paths.values()) for name in KERNELS}
+    log("launches: " + ", ".join(f"{k} {v}" for k, v in paths.items()))
     log(f"phase wall seconds {phases}; total {time.perf_counter() - t_start:.1f} s")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main paths")
+    # whisper's encoder (1,500 frames, non-causal) in training, by batch:
+    # its forwards go to flash_attention_whisper's row, its backwards to
+    # flash_attention_bwd_whisper's, timed at the fused steps' 2 clips.
+    enc_key = (WHISPER_FRAMES, *WHISPER_FLASH[1:], False)
+    trained_enc, trained_enc_bwd = ({key[0]: n for key, n in shapes.items() if key[1:] == enc_key}
+                                    for shapes in (trained[WHISPER_ARCH].fwd_shapes,
+                                                   trained[WHISPER_ARCH].bwd_shapes))
+    enc_launches = collections.Counter(whisper_enc) + collections.Counter(trained_enc)
+    for tally in (enc_launches, trained_enc_bwd):
+        check(max(tally, key=tally.get) == WHISPER_ROW_BATCH,
+              f"whisper's encoder launches by batch {tally}: the rows are timed at "
+              f"{WHISPER_ROW_BATCH} clips")
     # Rows of their own, timed at another path's shape: that path's launches
     # go there and are taken out of the kernel's main row.
     own_rows = [("ssd_scan", "ssd_scan_jamba", served_by_arch["jamba-v0.1-52b"]["ssd_scan"],
@@ -2506,13 +2948,22 @@ def main() -> int:
                  + fleet_seen["flash_attention"],
                  "the ViT's blocks at the COS batch (200 x 196, 6 heads of 64, f32, "
                  "non-causal; route 3xtf32)"),
-                ("flash_attention", "flash_attention_whisper", sum(whisper_enc.values()),
-                 f"whisper-small's encoder (1,500 frames, 12 heads of 64, bf16, non-causal): "
-                 f"{whisper_enc[WHISPER_ROW_BATCH]} launches at {WHISPER_ROW_BATCH} clips, the "
-                 f"tune side's suffix (the row's times), "
-                 + ", ".join(f"{n} at {b}" for b, n in whisper_enc.items()
-                             if b != WHISPER_ROW_BATCH)
-                 + " (the extract's microbatches and serving's prefill)"),
+                ("flash_attention", "flash_attention_whisper",
+                 sum(whisper_enc.values()) + sum(trained_enc.values()),
+                 f"whisper-small's encoder (1,500 frames, 12 heads of 64, bf16, non-causal), "
+                 f"launches by batch: pushdown and serving {dict(sorted(whisper_enc.items()))}, "
+                 f"training {dict(sorted(trained_enc.items()))}; timed at "
+                 f"{WHISPER_ROW_BATCH} clips, training's fused steps' chunks"),
+                ("flash_attention_bwd", "flash_attention_bwd_whisper",
+                 sum(trained_enc_bwd.values()),
+                 f"whisper-small's encoder in training (1,500 frames, 12 heads of 64, bf16, "
+                 f"non-causal), launches by batch {dict(sorted(trained_enc_bwd.items()))}; timed "
+                 f"at {WHISPER_ROW_BATCH} clips, the fused steps' chunks"),
+                ("ssd_scan_bwd", "ssd_scan_bwd_jamba", 0,
+                 "jamba-v0.1-52b's mamba layers at full width (2 x 4,096, 128 heads of 64, N 16, "
+                 "bf16, route mma), checked and timed only: no main path trains jamba at full "
+                 "width, since one 8-layer period, its split unit, needs about 178 GB to train "
+                 "on one card; its smoke config trains in train_defaults (f32, FMA route)"),
                 ("decode_attention", "decode_attention_whisper", whisper_cross,
                  "whisper-small's cross-attention decode (4 x 1,500 frames, 12/12 heads, hd 64, "
                  "bf16)")]

@@ -11,13 +11,14 @@ paper's ViT) on the tensor cores in split TF32, each f32 operand as a
 TF32 hi and lo and each product hi.hi + hi.lo + lo.hi on ``mma.sync``;
 f32 at 16, 32 (the smoke configs') and 256 on an FMA kernel. The kernel
 reports the route it launched, and ``fwd_routes`` counts launches by that
-route (``fwd_shapes`` by shape). No route falls back to another: a kernel
-that fails to build or launch raises. It keeps the public ``(B, S, H, hd)``
-layout and takes K and V with ``H`` heads or with ``Hkv`` heads where
-``Hkv`` divides ``H``; query head ``h`` then reads KV head
-``h // (H // Hkv)``, the order of ``layers._repeat_kv``. q, k and v may be
-strided views (of a fused QKV tensor, say) as long as the last stride is 1
-and rows are 16-byte aligned, which is what TMA and 16-byte loads need.
+route (``fwd_shapes`` by shape, ``bwd_shapes`` the backward's by shape).
+No route falls back to another: a kernel that fails to build or launch
+raises. It keeps the public ``(B, S, H, hd)`` layout and takes K and V
+with ``H`` heads or with ``Hkv`` heads where ``Hkv`` divides ``H``; query
+head ``h`` then reads KV head ``h // (H // Hkv)``, the order of
+``layers._repeat_kv``. q, k and v may be strided views (of a fused QKV
+tensor, say) as long as the last stride is 1 and rows are 16-byte aligned,
+which is what TMA and 16-byte loads need.
 
 Given ``lse=True`` the forward also returns each row's log-sum-exp in base
 2, ``(B, H, S)`` f32. ``flash_attention_bwd_cuda`` wraps the backward kernel
@@ -100,6 +101,7 @@ launches = 0
 bwd_launches = 0
 fwd_routes = dict.fromkeys(FWD_ROUTES, 0)   # forward launches by the route the kernel took
 fwd_shapes: Counter = Counter()   # forward launches by (B, S, H, Hkv, hd, causal)
+bwd_shapes: Counter = Counter()   # backward launches by (B, S, H, Hkv, hd, causal)
 
 
 def tile_config(hd: int) -> tuple:
@@ -283,6 +285,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel failed: CUDA error {rc}")
     bwd_launches += 1
+    bwd_shapes[(b, s, h, hkv, hd, bool(causal))] += 1
     return dq, dk, dv
 
 

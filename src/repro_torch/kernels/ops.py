@@ -59,6 +59,7 @@ def reset_launch_counts() -> None:
     fk.bwd_launches = 0
     fk.fwd_routes.update(dict.fromkeys(fk.FWD_ROUTES, 0))
     fk.fwd_shapes.clear()
+    fk.bwd_shapes.clear()
     ik.quantize_launches = 0
     ik.quantize_routes.update(vector=0, scalar=0)
     ik.dequantize_launches = 0

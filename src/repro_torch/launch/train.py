@@ -13,7 +13,10 @@ published one). Weights come from a ``torch.Generator`` seeded with the train
 config's seed: on the CPU for the smoke config, then moved, so that a seed
 gives one model on every device; on the device for the published config.
 The batches are numpy arrays from the pipeline, moved to the device each
-step.
+step: tokens (their own labels) for the LM families, frames, tokens and
+labels for the encoder-decoder (``seq`` frames, ``dec_seq`` tokens), patch
+embeddings, tokens and labels for the VLM (``seq`` counts the
+``n_patches`` patches and the text after them).
 """
 from __future__ import annotations
 
@@ -59,6 +62,8 @@ def run_training(
 ):
     device = torch.device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if cfg.family == "vlm" and seq <= cfg.n_patches:
+        raise ValueError(f"{arch}: seq {seq} leaves no text after its {cfg.n_patches} patches")
     shape = ShapeConfig("custom", "train", seq, batch)
     hapi = HapiConfig(compress_transfer=compress, cos_batch_min=1)
     tc = TrainConfig(learning_rate=lr, total_steps=steps, warmup_steps=max(2, steps // 10))

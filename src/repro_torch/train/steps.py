@@ -30,7 +30,8 @@ import torch
 
 from repro_torch.config import RunConfig
 from repro_torch.core.tier_split import Acts, TierPlan, make_extract_fn, make_tune_loss_fn
-from repro_torch.models.transformer import LM, Prefix, Suffix, merge_params
+from repro_torch.models.api import merge_params
+from repro_torch.models.transformer import LM, Prefix, Suffix
 from repro_torch.optim.adamw import OptState, adamw_update, init_opt_state
 
 

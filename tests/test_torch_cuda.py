@@ -1198,3 +1198,77 @@ def test_cuda_two_layers_card_vs_cpu(card, arch):
         assert counts["flash_attention"] == 4 and counts["decode_attention"] == 2 * 2 * 3
     else:
         assert counts["flash_attention"] == 2 and counts["decode_attention"] == 2 * 3
+
+
+# ---------------------------------------------------------------------------
+# Training the encoder-decoder and the hybrid; the collectives
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [2, 8])
+def test_cuda_flash_bwd_whisper_encoder_matches_plain(card, b):
+    """The backward at whisper's encoder shape: bf16, non-causal, 12 heads
+    of 64 over 1,500 frames (11 x 128 + 92 keys for a dK/dV block, 23 x 64 +
+    28 for a tile), at the train path's microbatch of 2 and at 8 clips. The
+    gradients average over many keys, so each is held by relative L2 (1e-2)
+    beside the max-abs bound; two calls give the same bits, and the launch
+    is counted by shape."""
+    q, k, v, out, lse, do = _flash_bwd_inputs(card, b, 1500, 12, 12, 64, False, None, None)
+    tops.reset_launch_counts()
+    grads = tfk.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=False)
+    assert tfk.bwd_launches == 1 and tfk.bwd_shapes == {(b, 1500, 12, 12, 64, False): 1}
+    want = tref.flash_attention_bwd(q, k, v, do, causal=False)
+    for name, got, exp in zip(("dq", "dk", "dv"), grads, want):
+        torch.testing.assert_close(got.float(), exp.float(), atol=2e-2, rtol=2e-2, msg=name)
+        assert _rel(got, exp) <= 1e-2, (name, _rel(got, exp))
+    again = tfk.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=False)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_bwd_at_jamba_width_matches_plain(card):
+    """jamba-v0.1-52b's mamba layer at its training shape: 128 heads of 64,
+    N 16, chunk 256, 2 x 4,096, bf16, on the tensor-core route; the five
+    gradients against the plain version by relative L2 (1e-2, the bf16
+    cases' bound)."""
+    b, s, h, p, n, chunk = 2, 4096, 128, 64, 16, 256
+    assert tsk.bwd_route(torch.bfloat16, n, p, chunk) == "mma"
+    args, dy, _ = _ssd_bwd_args(card, torch.bfloat16, b, s, h, p, n, -1.0, False)
+    _, _, states = tsk.ssd_scan_cuda(*args, chunk=chunk, states=True)
+    grads = tsk.ssd_scan_bwd_cuda(*args, states, dy, chunk=chunk)
+    want = tref.ssd_chunked_bwd(*args, dy, chunk=chunk, states=states)
+    for name, got, exp, like in zip(("dx", "ddtA", "ddt", "dB", "dC"), grads, want, args):
+        assert got.dtype == like.dtype and got.shape == like.shape, name
+        assert torch.isfinite(got).all(), name
+        assert _rel(got, exp) <= SSD_BWD_TOL["bfloat16"], (name, _rel(got, exp))
+    again = tsk.ssd_scan_bwd_cuda(*args, states, dy, chunk=chunk)
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+
+
+@pytest.mark.cuda
+def test_cuda_collectives_compressed_psum_one_rank_nccl(card, tmp_path):
+    """compressed_psum on a one-rank NCCL group: one quantize and one
+    dequantize launched, and the total and the residual equal, bit for bit,
+    the plain versions' composition on the card."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from repro_torch.distributed.collectives import compressed_psum
+
+    x = torch.from_numpy(_normal((1000, 1337), 95)).to(card, torch.bfloat16)
+    e = torch.from_numpy(_normal((1000, 1337), 96, 0.01)).to(card, torch.bfloat16)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        tops.reset_launch_counts()
+        total, new_error = compressed_psum(x, error=e)
+        counts = tops.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    assert counts["quantize_int8"] == 1 and counts["dequantize_int8"] == 1
+    carry = x + e
+    flat = F.pad(carry.reshape(-1), (0, (-carry.numel()) % 128))
+    local = tref.dequantize_int8(*tref.quantize_int8(flat[None]))[0, :carry.numel()]
+    local = local.reshape(carry.shape)
+    assert torch.equal(total, local.to(x.dtype))
+    assert torch.equal(new_error, (carry.float() - local.float()).to(x.dtype))
