@@ -127,6 +127,19 @@ three paths at full width:
   and decode case is held to its plain version by relative L2 as well as by
   its max-abs bound.
 
+* The multi-device layer (``repro_torch.distributed``, ``repro_torch.launch
+  .dryrun``), last: on a one-rank NCCL group and a (1, 1) ``DeviceMesh``, the
+  mistral-nemo-12b train path (8 blocks at full width, 4 x 4,096, split 6)
+  placed by ``param_pspecs`` and ``opt_state_pspecs`` runs 2 sharded steps,
+  is copied to host tensors, re-meshed (``plan_elastic_mesh``,
+  ``reshard_state``) and runs 2 more, every step bit-equal to the plain
+  step with the same launches; a one-stage ``pipeline_stages`` over the 8
+  blocks equals the blocks in turn; the dry-run's count of the same cell on
+  meta (in a subprocess) gives the FLOPs the counter reads around the card's
+  step, a peak within 0.8-1.25 of the card's and a roofline term the step
+  does not beat; and the JAX package's slow-test cell, whisper-small
+  decode_32k at 256 fake ranks, runs ``[ok]`` in a subprocess.
+
 Weights are random, from seeded ``torch.Generator``s. Exits non-zero on any
 failure, and without a GPU. It prints each phase's wall time. Its last lines
 are the card's name and power limit, one JSON line with every kernel's
@@ -142,6 +155,7 @@ import gc
 import io
 import json
 import math
+import os
 import platform
 import re
 import subprocess
@@ -159,7 +173,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.api import HapiCluster, NetworkSpec, TenantSpec  # noqa: E402
-from repro_torch.config import HW, HapiConfig, RunConfig, ShapeConfig, TrainConfig  # noqa: E402
+from repro_torch.config import (  # noqa: E402
+    HW, SINGLE_POD, HapiConfig, MeshSpec, RunConfig, ShapeConfig, TrainConfig)
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.batch_adapt import AdaptRequest, adapt_batches  # noqa: E402
 from repro_torch.core.profiler import profile_layered  # noqa: E402
@@ -171,6 +186,14 @@ from repro_torch.cos.client import BaselineClient, HapiClient  # noqa: E402
 from repro_torch.cos.clock import Link, Simulator  # noqa: E402
 from repro_torch.cos.objectstore import ObjectStore  # noqa: E402
 from repro_torch.cos.server import HapiServer  # noqa: E402
+from repro_torch.distributed.autoshard import activation_sharding  # noqa: E402
+from repro_torch.distributed.elastic import plan_elastic_mesh, reshard_state  # noqa: E402
+from repro_torch.distributed.pipeline import pipeline_stages  # noqa: E402
+from repro_torch.distributed.sharding import (  # noqa: E402
+    Sharder, batch_pspecs, opt_state_pspecs, placements)
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.cost_analysis import count_cost  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.distributed.collectives import (  # noqa: E402
     compressed_psum, decompress_boundary, tier_transfer)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -184,13 +207,15 @@ from repro_torch.kernels.int8_cases import INT8_ADVERSARIAL, int8_adversarial  #
 from repro_torch.kernels.int8_transfer import (  # noqa: E402
     dequantize_int8_cuda, quantize_int8_cuda)
 from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda  # noqa: E402
+from repro_torch.kernels import work  # noqa: E402
+from repro_torch.kernels.work import bound  # noqa: E402
 from repro_torch.launch.serve import generate, serve  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.launch.train import run_training  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.models.layers import KVCache, MoE, moe_apply, moe_route  # noqa: E402
-from repro_torch.models.transformer import Sublayer  # noqa: E402
+from repro_torch.models.transformer import Sublayer, _embed_tokens, _run_blocks  # noqa: E402
 from repro_torch.models.vision import PAPER_MODELS, EncoderBlock  # noqa: E402
 from repro_torch.train import steps as train_steps  # noqa: E402
 from repro_torch.train.steps import (  # noqa: E402
@@ -517,20 +542,10 @@ def device_ms(fn, iters: int, replays: int = 3) -> float:
     return start.elapsed_time(end) / (iters * replays)
 
 
-def bound(bytes_moved: float, ops_done: float, peak_flops: float):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the peak rate of their type."""
-    t_bytes = bytes_moved / HW.hbm_bandwidth
-    t_ops = ops_done / peak_flops
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def live_pairs(s: int, causal: bool, window) -> int:
-    """(query, key) pairs the mask leaves live: the work a flash kernel needs."""
-    q = np.arange(s)
-    lo = np.maximum(q - window, 0) if window is not None else np.zeros(s, np.int64)
-    hi = q if causal else np.full(s, s - 1)
-    return int((hi - lo + 1).sum())
+def flash_bound(b, s, h, hkv, hd, causal, window, itemsize):
+    """``work.flash_work`` at the bf16 peak."""
+    return bound(*work.flash_work(b, s, h, hkv, hd, causal, window, itemsize),
+                 HW.peak_flops_bf16)
 
 
 def randn(shape, dtype, seed):
@@ -610,7 +625,7 @@ def check_int8() -> dict:
     x = randn((2, 4096, 5120), torch.bfloat16, seed=1) * 3
     q, s = quantize_int8_cuda(x)
     n = x.numel()
-    qb, qby = bound(n * (2 + 1) + s.numel() * 4, 5 * n, HW.peak_flops_f32)
+    qb, qby = bound(*work.quantize_work(n, 2, s.numel()), HW.peak_flops_f32)
     quant = dict(max_abs_err=float((q.int() - ref.quantize_int8(x)[0].int()).abs().max()),
                  ms=device_ms(lambda: quantize_int8_cuda(x), 20),
                  plain_ms=time_ms(lambda: ref.quantize_int8(x), 10),
@@ -618,7 +633,7 @@ def check_int8() -> dict:
     q4 = torch.cat([q, q])
     s4 = torch.cat([s, s])
     n4 = q4.numel()
-    db, dby = bound(n4 * (1 + 2) + s4.numel() * 4, n4, HW.peak_flops_f32)
+    db, dby = bound(*work.dequantize_work(n4, 2, s4.numel()), HW.peak_flops_f32)
     got, exp = dequantize_int8_cuda(q4, s4), ref.dequantize_int8(q4, s4)
     # One PyTorch call of the same function: the f32 product of the codes and
     # their tile's scale, cast to bf16 on the way out (ref.dequantize_int8's
@@ -711,9 +726,7 @@ def check_flash() -> dict:
             f"relative L2 {rel:.3g} (tol {ATTN_REL_TOL:g})")
         check(rel <= ATTN_REL_TOL, f"flash B={b} S={s} hd={hd}: relative L2 {rel}")
         if main is None:
-            pairs = live_pairs(s, causal, window)
-            fb, fby = bound((2 * b * s * h * hd + 2 * b * s * hkv * hd) * q.element_size(),
-                            4 * hd * b * h * pairs, HW.peak_flops_bf16)
+            fb, fby = flash_bound(b, s, h, hkv, hd, causal, window, q.element_size())
             qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
             sdpa = torch.nn.functional.scaled_dot_product_attention
             main = dict(
@@ -737,8 +750,7 @@ def check_flash() -> dict:
         k = randn((b, s, 8, 128), torch.bfloat16, seed=2)
         v = randn((b, s, 8, 128), torch.bfloat16, seed=3)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        fb, fby = bound((2 * b * s * 32 * 128 + 2 * b * s * 8 * 128) * 2,
-                        4 * 128 * b * 32 * live_pairs(s, True, None), HW.peak_flops_bf16)
+        fb, fby = flash_bound(b, s, 32, 8, 128, True, None, 2)
         n = 10 if s > 512 else 100
         ms = device_ms(lambda: flash_attention_cuda(q, k, v), n)
         lib_ms = device_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), n)
@@ -761,8 +773,7 @@ def check_flash() -> dict:
         check(err <= BF16_TOL and rel <= ATTN_REL_TOL,
               f"flash at whisper's encoder shape, {b} clips: max abs err {err}, relative L2 {rel}")
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        fb, fby = bound((2 * b * s * h * hd + 2 * b * s * hkv * hd) * 2,
-                        4 * hd * b * h * live_pairs(s, False, None), HW.peak_flops_bf16)
+        fb, fby = flash_bound(b, s, h, hkv, hd, False, None, 2)
         r = rows[b] = dict(
             max_abs_err=err,
             ms=device_ms(lambda: flash_attention_cuda(q, k, v, causal=False), 20),
@@ -800,11 +811,9 @@ FLASH_BWD_ROWS = {(2, 4096, 32, 8, 128, True): "flash_attention_bwd",
 
 
 def flash_bwd_bound(b, s, h, hkv, hd, causal, window, itemsize):
-    """Bytes: q, k, v, o, dO read and dq, dk, dv written once, the
-    log-sum-exp read once; operations: five products of 2 hd FLOP per live
-    (query, key) pair and head (S, dP, dV, dK, dQ), at the bf16 peak."""
-    nbytes = (5 * b * s * h * hd + 4 * b * s * hkv * hd) * itemsize + 4 * b * h * s
-    return bound(nbytes, 10 * hd * b * h * live_pairs(s, causal, window), HW.peak_flops_bf16)
+    """``work.flash_bwd_work`` at the bf16 peak."""
+    return bound(*work.flash_bwd_work(b, s, h, hkv, hd, causal, window, itemsize),
+                 HW.peak_flops_bf16)
 
 
 def profiled_ms(fn, calls: int = 5) -> dict:
@@ -951,10 +960,8 @@ DECODE_SHAPES = {"path": (4, 544, 544, 32, 8, 128), "long": (4, 32768, 32768, 32
 
 
 def decode_bound(b, hq, hkv, hd, length, itemsize):
-    """Each live K and V row read once, q read and the output written once;
-    4 hd FLOP per (query head, key), on bf16 (or f32) operands."""
-    nbytes = (2 * b * length * hkv * hd + 2 * b * hq * hd) * itemsize
-    return bound(nbytes, 4 * hd * b * hq * length, HW.peak_flops_bf16)
+    """``work.decode_work`` at the bf16 peak."""
+    return bound(*work.decode_work(b, hq, hkv, hd, length, itemsize), HW.peak_flops_bf16)
 
 
 def check_decode() -> dict:
@@ -1042,18 +1049,10 @@ def ssd_inputs(b, s, h, p, n, dt, seed=10, a_log=None):
 
 
 def ssd_bound(b, s, h, p, n, q, itemsize):
-    """Bytes: x, B, C in their type, dtA and dt in f32 read once; y and the
-    state written once in f32. Operations: the least the chunked form needs,
-    with the within-chunk products over the lower triangle only: per chunk
-    C.B^T once per batch row, and per head the masked (C.B^T * L).(x dt),
-    the carried state's C.state and the state update B^T.(x dt). The bf16
-    kernel runs them on the tensor cores, so they count at the bf16 peak;
-    the f32 FMA bound of earlier runs comes back beside it."""
-    nbytes = (b * s * h * p + 2 * b * s * n) * itemsize + 2 * b * s * h * 4 \
-        + (b * s * h * p + b * h * n * p) * 4
-    tri = q * (q + 1) // 2
-    chunks = s // q
-    flops = b * chunks * (2 * tri * n + h * (2 * tri * p + 4 * q * n * p))
+    """``work.ssd_work``: the bf16 kernel runs its products on the tensor
+    cores, so they count at the bf16 peak; the f32 FMA bound of earlier runs
+    comes back beside it."""
+    nbytes, flops = work.ssd_work(b, s, h, p, n, q, itemsize)
     return bound(nbytes, flops, HW.peak_flops_bf16), flops, \
         bound(nbytes, flops, HW.peak_flops_f32)[0]
 
@@ -1122,18 +1121,9 @@ SSD_BWD_ROWS = {(2, 4096, 64, 64, 128, 256): "ssd_scan_bwd",
 
 
 def ssd_bwd_bound(b, s, h, p, n, q, itemsize):
-    """Bytes: x, B, C in their type, dtA and dt in f32, the states and dy in
-    f32 read once; dx, dB, dC in the inputs' type and d dtA, d dt in f32
-    written once. Operations: per chunk and batch row C.B^T once over the
-    lower triangle; per head the four triangle products (dy.xs^T, (S L)^T.dy,
-    (M L).B, (M L)^T.C) and the five with the state (C.h, h.dy, B.dh, dh.xs,
-    C^T.dy), at the bf16 tensor-core peak as the forward's bound counts
-    them; the f32 FMA bound comes back beside it."""
-    chunks = s // q
-    nbytes = (2 * b * s * h * p + 4 * b * s * n) * itemsize + 4 * b * s * h * 4 \
-        + (b * chunks * h * n * p + b * s * h * p) * 4
-    tri = q * (q + 1) // 2
-    flops = b * chunks * (2 * tri * n + h * (2 * tri * (2 * p + 2 * n) + 10 * q * n * p))
+    """``work.ssd_bwd_work`` at the bf16 tensor-core peak, as the forward's
+    bound counts them; the f32 FMA bound comes back beside it."""
+    nbytes, flops = work.ssd_bwd_work(b, s, h, p, n, q, itemsize)
     return bound(nbytes, flops, HW.peak_flops_bf16), flops, \
         bound(nbytes, flops, HW.peak_flops_f32)[0]
 
@@ -2281,7 +2271,7 @@ def vision_kernel_ms(name: str, vm, images: np.ndarray, split: int, cos_batch: i
         check(route == "vector", f"vision {name}: quantize took the {route} route")
         n = x.numel()
         scales = n // math.gcd(x.shape[-1], 128)
-        qb, qby = bound(n * (4 + 1) + scales * 4, 5 * n, HW.peak_flops_f32)
+        qb, qby = bound(*work.quantize_work(n, 4, scales), HW.peak_flops_f32)
         ms = device_ms(lambda: quantize_int8_cuda(x), 20)
         log(f"vision {name}: quantize_int8 on {tuple(x.shape)} float32 ({route} route, q, "
             f"scales and dequantize bit-exact with the plain versions): {ms:.4f} ms, bound "
@@ -2300,8 +2290,7 @@ def vision_kernel_ms(name: str, vm, images: np.ndarray, split: int, cos_batch: i
         b, s, d = vm.apply_range(torch.from_numpy(mb).cuda(), 0, first).shape
         hd = d // block.heads
         q, k, v = (randn((b, s, block.heads, hd), torch.float32, seed=40 + i) for i in range(3))
-        flops = 4 * hd * b * block.heads * s * s
-        nbytes = 4 * b * s * d * 4
+        nbytes, flops = work.flash_work(b, s, block.heads, block.heads, hd, False, None, 4)
         fb, fby = bound(nbytes, 3 * flops, HW.peak_flops_tf32)
         fma_ms = bound(nbytes, flops, HW.peak_flops_f32)[0]
         sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2875,6 +2864,291 @@ def _collectives(smi: str, llava: TrainRun) -> dict:
     return launched
 
 
+# ---------------------------------------------------------------------------
+# The multi-device layer on one card: a (1, 1) DeviceMesh
+# ---------------------------------------------------------------------------
+SHARDED_STEPS = 2          # steps before and after the elastic recovery
+SHARDED_MICRO = 4          # the pipeline's microbatches of the batch
+# The dry-run's predicted peak over the card's max_memory_allocated of the
+# same step: the counter tracks the storages the step's ops create, the card
+# also its allocator's rounding and the kernels' scratch.
+PEAK_RATIO = (0.8, 1.25)
+PRODUCTION_CELL = ("whisper-small", "decode_32k")   # the JAX package's slow-test cell
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, torch.distributed.tensor.DTensor) else t
+
+
+def host_state(state):
+    """A copy of a TrainState in host memory, whatever its layout (DTensors
+    gathered): what ``restore_checkpoint`` fills."""
+    def module(m):
+        memo = {id(p): torch.nn.Parameter(_full(p.detach()).cpu(), requires_grad=p.requires_grad)
+                for p in m.parameters()}
+        return copy.deepcopy(m, memo)
+
+    return train_steps.TrainState(
+        module(state.frozen), module(state.trainable),
+        train_steps.OptState({k: _full(v).cpu() for k, v in state.opt.m.items()},
+                             {k: _full(v).cpu() for k, v in state.opt.v.items()},
+                             _full(state.opt.step).cpu()))
+
+
+def snapshot(state) -> dict:
+    """The trainable parameters and both moments on the host."""
+    out = {f"trainable {k}": _full(v).detach().cpu() for k, v in
+           state.trainable.state_dict().items()}
+    out.update({f"m {k}": _full(v).cpu() for k, v in state.opt.m.items()})
+    out.update({f"v {k}": _full(v).cpu() for k, v in state.opt.v.items()})
+    return out
+
+
+def same_bits(a: dict, b: dict, what: str) -> None:
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    check(a.keys() == b.keys() and not differ, f"{what}: {len(differ)} tensors differ, "
+          f"{differ[:4]}")
+
+
+def timed_step(step, state, batch):
+    """(state, loss, ms, launches of each kernel) of one train step."""
+    before = ops.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    loss = float(_full(metrics["loss"]))
+    ms = 1e3 * (time.perf_counter() - t0)
+    return state, loss, ms, {k: v - before[k] for k, v in ops.launch_counts().items()}
+
+
+META_COUNT = """
+import dataclasses, json, sys
+sys.path.insert(0, "src")
+from repro_torch.config import HapiConfig, MeshSpec, RunConfig, ShapeConfig, TrainConfig
+from repro_torch.configs import get_config
+from repro_torch.core.tier_split import plan_tiers
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.specs import meta_model
+layers, batch, seq, lr = (int(a) if a.isdigit() else float(a) for a in sys.argv[1:5])
+cfg = dataclasses.replace(get_config("mistral-nemo-12b"), n_layers=layers)
+shape = ShapeConfig("train", "train", seq_len=seq, global_batch=batch)
+hapi = HapiConfig(compress_transfer=True, cos_batch=2, cos_batch_min=1)
+ms = MeshSpec((1, 1), ("data", "model"))
+rc = RunConfig(model=cfg, shape=shape, mesh=ms, hapi=hapi,
+               train=TrainConfig(microbatch=2, learning_rate=lr, warmup_steps=1, total_steps=5))
+plan = plan_tiers(cfg, shape, hapi)
+with dryrun.fake_world(1):
+    c = dryrun.count_train_step(meta_model(cfg), rc, plan, make_mesh(ms, "cpu"))
+print(json.dumps({"split": plan.split, "flops": c.flops, "bytes": c.bytes,
+                  "peak": c.peak_bytes, "kernel_flops": c.kernel_flops,
+                  "flops_by_op": c.flops_by_op,
+                  "roofline": dryrun.roofline_terms(c.flops, c.bytes, c.collectives)}))
+"""
+
+
+def sharded(smi: str) -> dict:
+    """The multi-device layer on a one-rank NCCL group (a FileStore in a
+    temporary directory, destroyed at the end) and a (1, 1) ("data",
+    "model") DeviceMesh, on the mistral-nemo-12b train path of TRAIN_PATHS
+    (8 blocks at full width, 4 x 4,096, split 6, COS batch 2, microbatch 2,
+    the int8 boundary). The two dry-runs on meta (the same cell, and
+    PRODUCTION_CELL) run on the host in processes of their own from the end
+    of the timed steps on. Returns the launches of each kernel on the main
+    path: the pipeline and the sharded and resumed steps, not the plain
+    steps they are held to."""
+    torch.cuda.set_device(0)
+    path = TRAIN_PATHS[ARCH]
+    arch, shape_name = PRODUCTION_CELL
+    dry = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def start_dry():
+            for name, cmd in (("meta", [sys.executable, "-c", META_COUNT, str(path.layers),
+                                        str(path.batch), str(path.seq), str(TRAIN_LR)]),
+                              ("cell", [sys.executable, "-m", "repro_torch.launch.dryrun",
+                                        "--arch", arch, "--shape", shape_name])):
+                dry[name] = _start(cmd, Path(tmp) / name)
+
+        try:
+            dist.init_process_group("nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1),
+                                    rank=0, world_size=1)
+            try:
+                return _sharded(smi, start_dry, dry)
+            finally:
+                dist.destroy_process_group()
+        finally:
+            for proc, _ in dry.values():
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+
+
+def _start(cmd: list, stem: Path):
+    """(process, stem): ``cmd`` run from the checkout's root on the host, its
+    output in ``stem``.out and ``stem``.err."""
+    with open(stem.with_suffix(".out"), "w") as out, open(stem.with_suffix(".err"), "w") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=err,
+                                env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    return proc, stem
+
+
+def _joined(proc, stem: Path, timeout: float):
+    """(return code, stdout, stderr) of a dry-run started by ``sharded``."""
+    proc.wait(timeout=timeout)
+    return (proc.returncode, stem.with_suffix(".out").read_text(),
+            stem.with_suffix(".err").read_text())
+
+
+def _sharded(smi: str, start_dry, dry: dict) -> dict:
+    t_phase = time.perf_counter()
+    at = lambda: f"[{time.perf_counter() - t_phase:.1f} s into the phase] "  # noqa: E731
+    path = TRAIN_PATHS[ARCH]
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=path.layers)
+    shape = ShapeConfig("train", "train", seq_len=path.seq, global_batch=path.batch)
+    hapi = HapiConfig(compress_transfer=True, cos_batch=2, cos_batch_min=1)
+    tc = TrainConfig(microbatch=2, learning_rate=TRAIN_LR, warmup_steps=1, total_steps=5)
+    ms = MeshSpec((1, 1), ("data", "model"))
+    rc = RunConfig(model=cfg, shape=shape, mesh=ms, hapi=hapi, train=tc)
+    plan = plan_tiers(cfg, shape, hapi)
+    check((plan.split, plan.cos_batch) == (path.split, 2), "unexpected train plan")
+    ops.reset_launch_counts()
+    free()
+    lm = build_model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    state, plain_step = _train_state(lm, rc, plan)
+    host0 = host_state(state)
+    batch = pushdown_request(cfg, path.batch, path.seq, 200)
+
+    # The plain (unsharded) steps: 2, a snapshot, 2 more.
+    plain = []
+    for i in range(2 * SHARDED_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        state, loss, ms_, rose = timed_step(plain_step, state, batch)
+        plain.append((loss, ms_, rose, torch.cuda.max_memory_allocated()))
+        if i == SHARDED_STEPS - 1:
+            snap_half = snapshot(state)
+    snap_end = snapshot(state)
+    log(at() + f"sharded phase, the plain step ({ARCH} at {cfg.n_layers} layers, {path.batch} x "
+        f"{path.seq}, split {plan.split}): ms {[round(p[1], 1) for p in plain]}, losses "
+        f"{[p[0] for p in plain]}, launches a step {plain[0][2]}")
+
+    # The pipeline: one stage over the 8 blocks' forward, on SHARDED_MICRO
+    # microbatches of the batch, against the blocks in turn on each.
+    with torch.no_grad():
+        x = _embed_tokens(lm.embed, batch["tokens"], cfg)
+        micro = x.reshape(SHARDED_MICRO, path.batch // SHARDED_MICRO, *x.shape[1:])
+        blocks = list(lm.blocks)
+        before = ops.launch_counts()
+        y = pipeline_stages(lambda bl, v: _run_blocks(bl, v), 1, SHARDED_MICRO)(blocks, micro)
+        rose = {k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]}
+        launched = collections.Counter(rose)
+        want = torch.stack([_run_blocks(blocks, micro[i]) for i in range(SHARDED_MICRO)])
+        check(torch.equal(y, want), "the one-stage pipeline differs from the blocks in turn")
+        check(rose == {"flash_attention": cfg.n_blocks * SHARDED_MICRO},
+              f"pipeline launches {rose}")
+    log(at() + f"pipeline_stages, 1 stage of {cfg.n_blocks} blocks, {SHARDED_MICRO} "
+        f"microbatches of {tuple(micro.shape[1:])} on one NCCL rank: bit-equal to the blocks in turn, "
+        f"launches {rose}")
+    del lm, state, plain_step, x, micro, y, want, blocks
+    free()
+
+    # The sharded steps: the state placed by the rules on the (1, 1) mesh.
+    mesh = make_mesh(ms, "cuda")
+    dp = Sharder(ms).dp(path.batch)
+    state, _ = reshard_state(host0, ms, mesh=mesh)
+    del host0
+    bs = batch_pspecs(cfg, shape, ms)
+    dbatch = {k: torch.distributed.tensor.distribute_tensor(v, mesh, placements(bs[k], mesh))
+              for k, v in batch.items()}
+    constrain = dryrun.make_constrain(mesh, ms, dp, opt_state_pspecs(state.trainable, ms))
+    step = build_hapi_train_step(None, rc, plan, constrain=constrain)
+    shard_acts = lambda: activation_sharding(dp, model_size=1, mesh=mesh)  # noqa: E731
+    runs = []
+    for i in range(SHARDED_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        if i == SHARDED_STEPS - 1:
+            with shard_acts(), count_cost() as card_cost:
+                state, loss, ms_, rose = timed_step(step, state, dbatch)
+        else:
+            with shard_acts():
+                state, loss, ms_, rose = timed_step(step, state, dbatch)
+        runs.append((loss, ms_, rose, torch.cuda.max_memory_allocated()))
+        launched.update(rose)
+    start_dry()
+    same_bits(snapshot(state), snap_half, f"{SHARDED_STEPS} sharded steps against the plain")
+    for (a, _, la, _), (b, _, lb, _) in zip(runs, plain):
+        check(a == b, f"sharded loss {a} against plain {b}")
+        check(la == lb, f"sharded launches {la} against plain {lb}")
+    log(at() + f"sharded step (param_pspecs(fsdp=True), opt_state_pspecs, activation_sharding, the "
+        f"constrain hook, DTensors on the (1, 1) NCCL mesh): ms {[round(r[1], 1) for r in runs]} "
+        f"(the second under the counter) against plain {[round(p[1], 1) for p in plain[:2]]}; "
+        f"losses, trainable parameters, m and v bit-equal to the plain steps'; launches a step "
+        f"{runs[0][2]}, as the plain step's; peak {runs[0][3]} bytes (plain {plain[0][3]}); {smi}")
+
+    # Elastic recovery: the state on the host, as restore_checkpoint fills it,
+    # re-meshed and trained 2 more steps.
+    host = host_state(state)
+    param_bytes = sum(t.numel() * t.element_size() for m in (host.frozen, host.trainable)
+                      for t in m.parameters())
+    del state
+    free()
+    planned = plan_elastic_mesh(torch.cuda.device_count(), SINGLE_POD, param_bytes)
+    check(planned == ms, f"plan_elastic_mesh gave {planned}")
+    state, _ = reshard_state(host, planned, mesh=mesh)
+    del host
+    for i in range(SHARDED_STEPS):
+        with shard_acts():
+            state, loss, ms_, rose = timed_step(step, state, dbatch)
+        check(loss == plain[SHARDED_STEPS + i][0] and rose == plain[SHARDED_STEPS + i][2],
+              f"resumed step {i}: loss {loss}, launches {rose}")
+        runs.append((loss, ms_, rose, None))
+        launched.update(rose)
+    same_bits(snapshot(state), snap_end, f"{2 * SHARDED_STEPS} steps with a re-mesh against "
+              "uninterrupted")
+    log(at() + f"elastic recovery: {param_bytes} parameter bytes to the host, plan_elastic_mesh(1, "
+        f"SINGLE_POD) {planned.shape}, reshard_state, {SHARDED_STEPS} more steps (ms "
+        f"{[round(r[1], 1) for r in runs[SHARDED_STEPS:]]}): {2 * SHARDED_STEPS} steps bit-equal "
+        f"to uninterrupted")
+    launched = {k: launched[k] for k in ops.launch_counts()}
+    log(at() + f"sharded phase launches on its main path (the pipeline, {2 * SHARDED_STEPS} "
+        f"sharded steps; not the plain steps they are held to): {launched}")
+    del state, dbatch, batch, step
+    free()
+
+    # The count on meta against the card.
+    t0 = time.perf_counter()
+    rc_, stdout, stderr = _joined(*dry["meta"], timeout=600)
+    log(f"waited {time.perf_counter() - t0:.1f} s for the meta count")
+    check(rc_ == 0, f"the meta count failed: {stderr[-2000:]}")
+    meta = json.loads(stdout.strip().splitlines()[-1])
+    card_flops = card_cost.flops
+    roof = max(meta["roofline"].values())
+    term = max(meta["roofline"], key=meta["roofline"].get)
+    ratio = meta["peak"] / runs[0][3]
+    log(at() + f"count against card: FLOPs on meta {meta['flops']:.6e} (kernels "
+        f"{meta['kernel_flops']}), around the card's step {card_flops:.6e} (kernels "
+        f"{card_cost.kernel_flops}); HBM bytes on meta {meta['bytes']:.6e}, on the card "
+        f"{card_cost.bytes:.6e}; predicted peak {meta['peak']:.0f} bytes, the card's "
+        f"max_memory_allocated {runs[0][3]} (ratio {ratio:.4f}, held to {PEAK_RATIO}); roofline "
+        f"{meta['roofline']}, the largest {term} {1e3 * roof:.1f} ms against the card's step "
+        f"{runs[0][1]:.1f} ms; {smi}")
+    check(meta["split"] == plan.split, "the meta count's plan")
+    check(meta["flops"] == card_flops and meta["kernel_flops"] == card_cost.kernel_flops,
+          f"FLOPs on meta {meta['flops']} against the card's {card_flops}")
+    check(PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1], f"peak ratio {ratio}")
+    check(runs[0][1] >= 1e3 * roof, f"the step ({runs[0][1]} ms) beat its roofline term "
+          f"({1e3 * roof} ms): the count is wrong")
+
+    # One production cell, at 256 fake ranks in a process of its own (this
+    # one's default group is the NCCL rank).
+    arch, shape_name = PRODUCTION_CELL
+    rc_, stdout, stderr = _joined(*dry["cell"], timeout=600)
+    cell = [line for line in stdout.splitlines() if line.startswith("[")]
+    log(at() + f"dry-run {arch} {shape_name}: {cell}")
+    check(rc_ == 0 and len(cell) == 1 and cell[0].startswith("[ok]") and " dom=" in cell[0],
+          f"the production cell: {stdout[-1000:]} {stderr[-1000:]}")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -2914,10 +3188,11 @@ def main() -> int:
     fleet_seen = phase("fleet", lambda: fleet(smi, images, labels))
     del images, labels
     collected = phase("collectives", lambda: collectives(smi, trained[LLAVA_ARCH]))
+    sharded_seen = phase("sharded", lambda: sharded(smi))
     paths = {"pushdown": pushdown, "serving": served, "vision": seen, "epoch": epoch_seen,
              "fleet": fleet_seen, "whisper pushdown": whisper_pushed,
              "whisper serving": whisper_served, "llava pushdown": llava_pushed,
-             "llava serving": llava_served, "collectives": collected,
+             "llava serving": llava_served, "collectives": collected, "sharded": sharded_seen,
              **{f"training {arch}": run.launches for arch, run in trained.items()}}
     launches = {name: sum(p[name] for p in paths.values()) for name in KERNELS}
     log("launches: " + ", ".join(f"{k} {v}" for k, v in paths.items()))

@@ -4,8 +4,11 @@ A copy of the parts of ``repro/config.py`` that the pushdown, serving and
 training paths read (the port imports nothing of ``repro``):
   * ``ModelConfig``   — one per architecture (see ``repro_torch.configs``).
   * ``ShapeConfig``   — the input shape of a job.
-  * ``MeshSpec``      — a device mesh, kept as plain data: no port path reads
-    it until the collectives slice.
+  * ``SHAPES``        — the dry-run's four input shapes, and
+    ``cell_is_runnable`` for the (arch x shape) matrix.
+  * ``MeshSpec``      — a device mesh as plain data (``launch/mesh.py`` builds
+    the ``DeviceMesh``); ``SINGLE_POD`` and ``MULTI_POD`` are the production
+    meshes.
   * ``HapiConfig``    — knobs of the paper's technique (split/batch-adapt).
   * ``TrainConfig``   — optimizer and step settings; ``RunConfig`` joins them.
   * ``HW``            — NVIDIA H100 SXM roofline constants.
@@ -30,6 +33,13 @@ class HardwareSpec:
     peak_flops_tf32: float = 495e12          # FLOP/s, tensor cores, dense
     hbm_bandwidth: float = 3.35e12           # bytes/s
     hbm_capacity: float = 80e9               # bytes
+    # The collective and cross-tier terms' rates, one direction of a card's
+    # links. NVLink 4 inside an 8-card node: 900 GB/s bidirectional per SXM
+    # card (NVIDIA's H100 data sheet). Between nodes: one 400 Gb/s NDR
+    # InfiniBand port per card, as in a DGX H100 (NVIDIA's DGX H100 data sheet).
+    nvlink_bandwidth: float = 450e9          # bytes/s
+    ib_bandwidth: float = 50e9               # bytes/s
+    cards_per_node: int = 8
 
 
 HW = HardwareSpec()
@@ -133,6 +143,14 @@ class ModelConfig:
         return self.n_layers
 
     @property
+    def layers_per_block(self) -> int:
+        if self.local_global_period:
+            return self.local_global_period
+        if self.attn_period:
+            return self.attn_period
+        return 1
+
+    @property
     def freeze_index(self) -> int:
         """Block index separating feature extraction from training (paper §2.3)."""
         return max(1, min(self.n_blocks - 1, round(self.freeze_frac * self.n_blocks)))
@@ -216,8 +234,26 @@ class ShapeConfig:
     global_batch: int
 
 
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
+# Archs allowed to run long_500k (sub-quadratic / O(1)-state decode).
+LONG_CONTEXT_FAMILIES = ("ssm", "hybrid")
+
+
+def cell_is_runnable(model: ModelConfig, shape: ShapeConfig) -> bool:
+    """Whether an (arch x shape) cell runs or is a documented skip."""
+    if shape.name == "long_500k":
+        return model.family in LONG_CONTEXT_FAMILIES
+    return True
+
+
 # ---------------------------------------------------------------------------
-# Mesh specification (plain data until the collectives slice)
+# Mesh specification
 # ---------------------------------------------------------------------------
 @dataclass(frozen=True)
 class MeshSpec:
@@ -241,6 +277,7 @@ class MeshSpec:
 
 
 SINGLE_POD = MeshSpec((16, 16), ("data", "model"))
+MULTI_POD = MeshSpec((2, 16, 16), ("pod", "data", "model"))
 
 
 # ---------------------------------------------------------------------------
@@ -281,7 +318,7 @@ class TrainConfig:
     warmup_steps: int = 100
     total_steps: int = 1000
     microbatch: int = 0                       # 0 -> whole per-device batch at once
-    remat: str = "block"                      # none | block | full
+    remat: str = "block"                      # none | block
     opt_state_dtype: str = "float32"          # grok overrides to bfloat16
     zero_sharding: bool = True                # shard optimizer states over data axis
     seed: int = 0

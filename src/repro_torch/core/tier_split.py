@@ -30,6 +30,7 @@ from repro_torch.config import HapiConfig, ModelConfig, ShapeConfig
 from repro_torch.core.batch_adapt import AdaptRequest, adapt_batches
 from repro_torch.core.profiler import LayerProfile, profile_lm
 from repro_torch.core.splitter import SplitDecision, choose_split
+from repro_torch.distributed.autoshard import cat_rows, chunk_rows
 from repro_torch.kernels import ops
 from repro_torch.models.module import dtype_of
 from repro_torch.models.transformer import Prefix, Suffix
@@ -88,11 +89,15 @@ def plan_tiers(
 # Executable halves
 # ---------------------------------------------------------------------------
 def _microbatches(batch: dict, mb: int):
+    """Microbatches of ``mb`` samples; a batch of DTensors is cut on each
+    rank's local rows (``autoshard.chunk_rows``), ``mb`` counting the
+    microbatch's samples over all ranks."""
     lead = next(iter(batch.values())).shape[0]
     if lead % mb:
         raise ValueError(f"batch of {lead} does not split into microbatches of {mb}")
-    for i in range(0, lead, mb):
-        yield {k: v[i:i + mb] for k, v in batch.items()}
+    parts = {k: chunk_rows(v, lead // mb) for k, v in batch.items()}
+    for i in range(lead // mb):
+        yield {k: v[i] for k, v in parts.items()}
 
 
 def make_extract_fn(plan: TierPlan) -> Callable[[Prefix, dict], Acts]:
@@ -105,8 +110,8 @@ def make_extract_fn(plan: TierPlan) -> Callable[[Prefix, dict], Acts]:
                 acts = frozen(mb)
                 outs.append(ops.quantize_int8(acts) if plan.compress else acts)
         if plan.compress:
-            return (torch.cat([q for q, _ in outs]), torch.cat([s for _, s in outs]))
-        return torch.cat(outs)
+            return (cat_rows([q for q, _ in outs]), cat_rows([s for _, s in outs]))
+        return cat_rows(outs)
 
     return extract
 

@@ -26,7 +26,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 from repro_torch.kernels.flash_attention import softmax_scale
 
 HEAD_DIMS = (16, 64, 128, 256)          # bf16 caches' (16: the f32 smoke models decode on them)
@@ -158,5 +158,7 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel failed: CUDA error {rc}")
     launches += 1
+    work.tally("decode_attention", work.decode_work(b, hq, hkv, hd, hi - lo,
+                                                     k_cache.element_size()))
     shapes[(b, s, hq, hkv, hd)] += 1
     return out

@@ -45,6 +45,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
+from repro_torch.kernels import work
 
 HEAD_DIMS = (64, 128, 256)              # the bf16 kernel's
 F32_HEAD_DIMS = (16, 32, 64, 128, 256)  # the f32 kernel's
@@ -240,6 +241,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel failed: CUDA error {rc}")
     launches += 1
+    work.tally("flash_attention", work.flash_work(b, s, h, hkv, hd, causal, window,
+                                                   q.element_size()))
     fwd_routes[FWD_ROUTES[route.value]] += 1
     fwd_shapes[(b, s, h, hkv, hd, bool(causal))] += 1
     return (out, lse_t) if lse else out
@@ -285,8 +288,27 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel failed: CUDA error {rc}")
     bwd_launches += 1
+    work.tally("flash_attention_bwd", work.flash_bwd_work(b, s, h, hkv, hd, causal, window,
+                                                           q.element_size()))
     bwd_shapes[(b, s, h, hkv, hd, bool(causal))] += 1
     return dq, dk, dv
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, window: Optional[int] = None, lse: bool = False):
+    """What ``flash_attention_cuda`` returns, on meta tensors: outputs of
+    the right shape, and the kernel's work recorded (``kernels/work.py``);
+    nothing is launched or computed."""
+    b, s, h, hd = q.shape
+    if k.shape != v.shape or k.shape[:2] != (b, s) or k.shape[3] != hd or h % k.shape[2]:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match "
+                         f"q {tuple(q.shape)}")
+    work.tally("flash_attention", work.flash_work(b, s, h, k.shape[2], hd, causal, window,
+                                                   q.element_size()))
+    out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    if not lse:
+        return out
+    return out, torch.empty((b, h, s), dtype=torch.float32, device=q.device)
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -297,7 +319,9 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
-        if q.is_cuda:
+        if q.is_meta:
+            out, lse = flash_attention_meta(q, k, v, causal=causal, window=window, lse=True)
+        elif q.is_cuda:
             out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
                                             softcap=softcap, lse=True)
         else:
@@ -313,7 +337,12 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         causal, window, softcap = ctx.mask
-        if q.is_cuda:
+        if q.is_meta:
+            b, s, h, hd = q.shape
+            work.tally("flash_attention_bwd", work.flash_bwd_work(
+                b, s, h, k.shape[2], hd, causal, window, q.element_size()))
+            grads = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+        elif q.is_cuda:
             grads = flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=causal,
                                              window=window, softcap=softcap)
         else:

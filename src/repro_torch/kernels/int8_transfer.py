@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 
 _SIGNATURES = {
     "quantize_int8": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -77,6 +77,7 @@ def quantize_int8_cuda(x: torch.Tensor, tile: int = 128):
               q.data_ptr(), s.data_ptr(), rows, d, tile, _DTYPE_CODE[x.dtype],
               int(route == "vector"), torch.cuda.current_stream().cuda_stream)
     quantize_launches += 1
+    work.tally("quantize_int8", work.quantize_work(x.numel(), x.element_size(), s.numel()))
     quantize_routes[route] += 1
     return q, s
 
@@ -109,4 +110,6 @@ def dequantize_int8_cuda(q: torch.Tensor, scales: torch.Tensor,
               q.numel(), tile.bit_length() - 1, _DTYPE_CODE[dtype],
               torch.cuda.current_stream().cuda_stream)
     dequantize_launches += 1
+    work.tally("dequantize_int8", work.dequantize_work(q.numel(), out.element_size(),
+                                                        scales.numel()))
     return out

@@ -7,18 +7,39 @@ fallback from the kernel to the plain version. Under autograd, flash
 attention runs as ``FlashAttentionFn`` and the SSD scan as ``SSDScanFn``,
 each with its backward kernel; the decode kernel has no backward (serving
 runs it under ``torch.no_grad``).
+
+A meta tensor (the dry-run) takes neither: the entry point returns outputs
+of the right shape and records the kernel's work (``kernels/work.py``), as
+the kernel's wrapper does each time it launches on the card.
+
+A DTensor goes through ``local_map`` with the placements the JAX package's
+constraints pin at that site, and the kernel (or, on the CPU, the plain
+version) runs on each rank's local shard: attention takes the batch over
+the data axes and the heads over the model axis where they divide, else
+replicated. Where the query heads divide the model axis and the KV heads do
+not (GQA: 8 KV heads on 16 ranks), K and V stay replicated over it and each
+rank slices the KV heads its own query heads read, whose gradients are then
+partial sums over the model axis. Decode takes its caches with the sequence
+whole (a sequence-sharded cache is gathered first); the SSD scan takes the
+heads over the model axis and B and C replicated; the int8 boundary takes
+the batch over the data axes.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.distributed.autoshard import (
+    data_placements, mesh_model_size, model_partial, with_model)
 from repro_torch.kernels import decode_attention as dk
 from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import int8_transfer as ik
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as sk
+from repro_torch.kernels import work
 
 # ---------------------------------------------------------------------------
 # The authoritative int8 wire-compression ratio (see repro/kernels/ops.py):
@@ -76,14 +97,103 @@ def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(b, s, h * n_rep, d)
 
 
+# ---------------------------------------------------------------------------
+# The seam on DTensors
+# ---------------------------------------------------------------------------
+def _head_split(mesh, h: int, hkv: int):
+    """How ``h`` query and ``hkv`` KV heads go over the model axis: "shard"
+    (both divide), "slice" (the query heads divide; each rank reads the KV
+    heads of its own query heads), or None (replicated)."""
+    m = mesh_model_size(mesh)
+    if m <= 1 or h % m:
+        return None
+    if hkv % m == 0:
+        return "shard"
+    hl, rep = h // m, h // hkv
+    return "slice" if hl % rep == 0 or rep % hl == 0 else None
+
+
+def _kv_slice(mesh, h: int, hkv: int) -> slice:
+    """The KV heads this rank's query heads read, where ``_head_split`` is
+    "slice"."""
+    hl, rep = h // mesh_model_size(mesh), h // hkv
+    r = mesh.get_local_rank("model")
+    return slice((r * hl) // rep, ((r + 1) * hl - 1) // rep + 1)
+
+
+def _sharded(fn, args, in_pl, out_pl, grad_pl=None):
+    return local_map(fn, out_placements=out_pl, in_placements=in_pl,
+                     in_grad_placements=grad_pl, device_mesh=args[0].device_mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def _flash_sharded(q, k, v, causal, window, softcap):
+    mesh = q.device_mesh
+    b, _, h, _ = q.shape
+    hkv = k.shape[2]
+    base = data_placements(mesh, b)
+    split = _head_split(mesh, h, hkv)
+    qp = with_model(mesh, base, Shard(2) if split else Replicate())
+    kp = with_model(mesh, base, Shard(2) if split == "shard" else Replicate())
+    kg = model_partial(mesh, kp) if split == "slice" else kp
+    kv = _kv_slice(mesh, h, hkv) if split == "slice" else slice(None)
+
+    def local(ql, kl, vl):
+        return flash_attention(ql, kl[:, :, kv], vl[:, :, kv], causal=causal, window=window,
+                               softcap=softcap)
+
+    return _sharded(local, (q, k, v), (qp, kp, kp), (list(qp),), (qp, kg, kg))
+
+
+def _decode_sharded(q, k_cache, v_cache, length, window, softcap):
+    mesh = q.device_mesh
+    b, hq, _ = q.shape
+    hkv = k_cache.shape[2]
+    base = data_placements(mesh, b)
+    split = _head_split(mesh, hq, hkv)
+    qp = with_model(mesh, base, Shard(1) if split else Replicate())
+    kp = with_model(mesh, base, Shard(2) if split == "shard" else Replicate())
+    kv = _kv_slice(mesh, hq, hkv) if split == "slice" else slice(None)
+
+    def local(ql, kl, vl):
+        return decode_attention(ql, kl[:, :, kv], vl[:, :, kv], length, window=window,
+                                softcap=softcap)
+
+    return _sharded(local, (q, k_cache, v_cache), (qp, kp, kp), (list(qp),))
+
+
+def _ssd_sharded(x, dtA, dt, B_, C_, chunk):
+    mesh = x.device_mesh
+    b, _, h, _ = x.shape
+    base = data_placements(mesh, b)
+    heads = mesh_model_size(mesh) > 1 and h % mesh_model_size(mesh) == 0
+    xp = with_model(mesh, base, Shard(2) if heads else Replicate())
+    bp = with_model(mesh, base, Replicate())
+    bg = model_partial(mesh, bp) if heads else bp
+    yp, sp = list(xp), list(with_model(mesh, base, Shard(1) if heads else Replicate()))
+
+    def local(*a):
+        return ssd_scan(*a, chunk=chunk)
+
+    return _sharded(local, (x, dtA, dt, B_, C_), (xp, xp, xp, bp, bp), (yp, sp),
+                    (xp, xp, xp, bg, bg))
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
     """q (B, S, H, hd); k, v (B, S, Hkv, hd) with Hkv dividing H. Where
     autograd is on and an input requires grad, ``FlashAttentionFn`` (the
     forward kernel with its log-sum-exp, then the backward kernel)."""
+    if isinstance(q, DTensor):
+        return _flash_sharded(q, k, v, causal, window, softcap)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return fk.FlashAttentionFn.apply(q, k, v, causal, window, softcap)
+    if q.is_meta:
+        return fk.flash_attention_meta(q, k, v, causal=causal, window=window)
     if q.is_cuda:
         return fk.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                        softcap=softcap)
@@ -93,6 +203,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def quantize_int8(x: torch.Tensor, tile: int = WIRE_TILE):
+    if isinstance(x, DTensor):
+        pl = with_model(x.device_mesh, data_placements(x.device_mesh, x.shape[0]),
+                         Replicate())
+        return _sharded(lambda xl: quantize_int8(xl, tile), (x,), (pl,), (list(pl), list(pl)))
+    if x.is_meta:
+        import math
+        *lead, d = x.shape
+        s = torch.empty((*lead, d // math.gcd(d, tile)), dtype=torch.float32, device=x.device)
+        work.tally("quantize_int8", work.quantize_work(x.numel(), x.element_size(), s.numel()))
+        return torch.empty(x.shape, dtype=torch.int8, device=x.device), s
     if x.is_cuda:
         return ik.quantize_int8_cuda(x, tile=tile)
     return ref.quantize_int8(x, tile=tile)
@@ -100,6 +220,16 @@ def quantize_int8(x: torch.Tensor, tile: int = WIRE_TILE):
 
 def dequantize_int8(q: torch.Tensor, scales: torch.Tensor,
                     dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    if isinstance(q, DTensor):
+        pl = with_model(q.device_mesh, data_placements(q.device_mesh, q.shape[0]),
+                         Replicate())
+        return _sharded(lambda ql, sl: dequantize_int8(ql, sl, dtype), (q, scales), (pl, pl),
+                        (list(pl),))
+    if q.is_meta:
+        out = torch.empty(q.shape, dtype=dtype, device=q.device)
+        work.tally("dequantize_int8", work.dequantize_work(q.numel(), out.element_size(),
+                                                            scales.numel()))
+        return out
     if q.is_cuda:
         return ik.dequantize_int8_cuda(q, scales, dtype=dtype)
     return ref.dequantize_int8(q, scales, dtype=dtype)
@@ -110,6 +240,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
                      softcap: Optional[float] = None) -> torch.Tensor:
     """q (B, Hq, hd) against caches (B, S, Hkv, hd) whose first ``length``
     positions are live; ``length`` is a host int."""
+    if isinstance(q, DTensor):
+        return _decode_sharded(q, k_cache, v_cache, length, window, softcap)
+    if q.is_meta:
+        b, hq, hd = q.shape
+        work.tally("decode_attention", work.decode_work(
+            b, hq, k_cache.shape[2], hd, work.decode_live(int(length), window),
+            k_cache.element_size()))
+        return torch.empty((b, hq, hd), dtype=k_cache.dtype, device=q.device)
     if q.is_cuda:
         return dk.decode_attention_cuda(q, k_cache, v_cache, length, window=window,
                                         softcap=softcap)
@@ -121,8 +259,12 @@ def ssd_scan(x: torch.Tensor, dtA: torch.Tensor, dt: torch.Tensor, B_: torch.Ten
     """Mamba2 SSD from a zero state: (y f32 (B, S, H, P), state f32 (B, H, N, P)).
     Where autograd is on and an input requires grad, ``SSDScanFn`` (the
     forward kernel with its states, then the backward kernel)."""
+    if isinstance(x, DTensor):
+        return _ssd_sharded(x, dtA, dt, B_, C_, chunk)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dtA, dt, B_, C_)):
         return sk.SSDScanFn.apply(x, dtA, dt, B_, C_, chunk)
+    if x.is_meta:
+        return sk.ssd_scan_meta(x, B_, chunk=chunk)
     if x.is_cuda:
         return sk.ssd_scan_cuda(x, dtA, dt, B_, C_, chunk=chunk)
     return ref.ssd_chunked(x, dtA, dt, B_, C_, chunk=chunk)

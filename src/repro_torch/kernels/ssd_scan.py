@@ -42,6 +42,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
+from repro_torch.kernels import work
 
 MAX_STATE = 128       # N
 MAX_HEAD_DIM = 64     # P
@@ -267,6 +268,7 @@ def ssd_scan_cuda(x: torch.Tensor, dtA: torch.Tensor, dt: torch.Tensor, B_: torc
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel failed: CUDA error {rc}")
     launches += 1
+    work.tally("ssd_scan", work.ssd_work(b, s, h, p, n, q, x.element_size()))
     y = y if q16 == q else unpad_chunks(y, q, q16)
     return (y, state, entering) if states else (y, state)
 
@@ -323,6 +325,7 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dtA: torch.Tensor, dt: torch.Tensor, B_: 
     if rc != 0:
         raise RuntimeError(f"ssd_scan_bwd kernel failed: CUDA error {rc}")
     bwd_launches += 1
+    work.tally("ssd_scan_bwd", work.ssd_bwd_work(b, s, h, p, n, q, x.element_size()))
     grads = (dx, ddtA.to(dtA.dtype), ddt.to(dt.dtype), dB, dC)
     return tuple(unpad_chunks(g, q, qk) for g in grads) if qk != q else grads
 
@@ -370,6 +373,22 @@ def ssd_bwd_chunk_dstates_cuda(dtA: torch.Tensor, C_: torch.Tensor, dy: torch.Te
     return dh
 
 
+def ssd_scan_meta(x: torch.Tensor, B_: torch.Tensor, *, chunk: int = 256,
+                  states: bool = False):
+    """What ``ssd_scan_cuda`` returns, on meta tensors: outputs of the right
+    shape, and the kernel's work recorded (``kernels/work.py``); nothing is
+    launched or computed."""
+    b, s, h, p = x.shape
+    n = B_.shape[-1]
+    q = min(chunk, s)
+    work.tally("ssd_scan", work.ssd_work(b, s, h, p, n, q, x.element_size()))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y, state = torch.empty((b, s, h, p), **f32), torch.empty((b, h, n, p), **f32)
+    if not states:
+        return y, state
+    return y, state, torch.empty((b, -(-s // q), h, n, p), **f32)
+
+
 class SSDScanFn(torch.autograd.Function):
     """The SSD scan under autograd: the forward kernel, which also writes the
     state entering each chunk, then the backward kernel. Remat reruns
@@ -381,7 +400,9 @@ class SSDScanFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dtA, dt, B_, C_, chunk):
         ctx.set_materialize_grads(False)
-        if x.is_cuda:
+        if x.is_meta:
+            y, state, states = ssd_scan_meta(x, B_, chunk=chunk, states=True)
+        elif x.is_cuda:
             y, state, states = ssd_scan_cuda(x, dtA, dt, B_, C_, chunk=chunk, states=True)
         else:
             y, state, states = ref.ssd_chunked(x, dtA, dt, B_, C_, chunk=chunk, states=True)
@@ -394,7 +415,12 @@ class SSDScanFn(torch.autograd.Function):
         x, dtA, dt, B_, C_, states = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-        if x.is_cuda:
+        if x.is_meta:
+            b, s, h, p = x.shape
+            work.tally("ssd_scan_bwd", work.ssd_bwd_work(b, s, h, p, B_.shape[-1],
+                                                          min(ctx.chunk, s), x.element_size()))
+            grads = tuple(torch.empty_like(t) for t in (x, dtA, dt, B_, C_))
+        elif x.is_cuda:
             grads = ssd_scan_bwd_cuda(x, dtA, dt, B_, C_, states, dy, dstate, chunk=ctx.chunk)
         else:
             grads = ref.ssd_chunked_bwd(x, dtA, dt, B_, C_, dy, dstate, chunk=ctx.chunk,

@@ -40,6 +40,7 @@ import torch
 from torch import nn
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed.autoshard import block_weights, constrain_act, gather_fsdp
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import softmax_scale
 from repro_torch.models import layers as L
@@ -74,7 +75,7 @@ def cross_attention_apply(p: L.Attention, x: torch.Tensor, enc_kv: KV,
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * softmax_scale(cfg.hdim)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-    return torch.einsum("bshd,hdm->bsm", out, p.wo)
+    return L.merge_heads("bshd,hdm->bsm", out, p.wo)
 
 
 def cross_attention_decode(p: L.Attention, x: torch.Tensor, cross: L.KVCache,
@@ -83,7 +84,7 @@ def cross_attention_decode(p: L.Attention, x: torch.Tensor, cross: L.KVCache,
     ``length`` = the cache's frames."""
     q = torch.einsum("bsd,dhk->bshk", x, p.wq)
     out = ops.decode_attention(q[:, 0], cross.k, cross.v, cross.k.shape[1])
-    return torch.einsum("bhd,hdm->bm", out.to(p.wo.dtype), p.wo)[:, None]
+    return L.merge_heads("bhd,hdm->bm", out.to(p.wo.dtype), p.wo)[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -133,12 +134,9 @@ class DecBlock(nn.Module):
         kv = cross_kv(self.cross_attn, enc, self.cfg)
         q, k, v = L._project_qkv(self.self_attn, self.ln1(h), self.cfg, positions)
         h = self._cross_and_mlp(h + L.attend(self.self_attn, q, k, v, self.cfg), kv)
-        b, s = k.shape[:2]
-        shape = (b, smax) + tuple(k.shape[2:])
-        self_c = L.KVCache(torch.zeros(shape, dtype=torch.bfloat16, device=h.device),
-                           torch.zeros(shape, dtype=torch.bfloat16, device=h.device))
-        self_c.k[:, :s] = k
-        self_c.v[:, :s] = v
+        pad = (0, 0, 0, 0, 0, smax - k.shape[1])   # positions past the prompt: zeros
+        self_c = L.KVCache(L.pad_unsharded(k.to(torch.bfloat16), pad),
+                           L.pad_unsharded(v.to(torch.bfloat16), pad))
         cross_c = L.KVCache(kv[0].to(torch.bfloat16), kv[1].to(torch.bfloat16))
         return h, self_c, cross_c
 
@@ -153,13 +151,14 @@ class DecBlock(nn.Module):
 # The decoder, shared by the model and its suffix
 # ---------------------------------------------------------------------------
 def _frames(batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    return batch["frames"].to(dtype_of(cfg.compute_dtype))
+    return constrain_act(batch["frames"].to(dtype_of(cfg.compute_dtype)))
 
 
 def _embed_dec(m: nn.Module, tokens: torch.Tensor, start: int) -> torch.Tensor:
     """Token embeddings plus the learned positions [start, start + S)."""
-    h = m.dec_embed[tokens].to(dtype_of(m.cfg.compute_dtype))
-    return h + m.dec_pos[start:start + tokens.shape[1]][None].to(h.dtype)
+    h = L.embed_lookup(m.dec_embed, tokens).to(dtype_of(m.cfg.compute_dtype))
+    pos = gather_fsdp(m.dec_pos[start:start + tokens.shape[1]])
+    return constrain_act(h + pos[None].to(h.dtype))
 
 
 def _decode_full(m: nn.Module, enc: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -232,7 +231,8 @@ class EncDec(nn.Module):
         positions = torch.arange(s, device=h.device)[None, :]
         self_c, cross_c = [], []
         for block in self.dec_blocks:
-            h, sc, cc = block.prefill(h, positions, enc, smax)
+            with block_weights(block):
+                h, sc, cc = block.prefill(h, positions, enc, smax)
             self_c.append(sc)
             cross_c.append(cc)
         return _head(self.dec_norm, self.dec_embed, h[:, -1:], self.cfg), \
@@ -245,7 +245,8 @@ class EncDec(nn.Module):
         h = _embed_dec(self, token, pos)
         new_self = []
         for block, sc, cc in zip(self.dec_blocks, cache["self"], cache["cross"]):
-            h, sc = block.decode(h, sc, cc, pos)
+            with block_weights(block):
+                h, sc = block.decode(h, sc, cc, pos)
             new_self.append(sc)
         return _head(self.dec_norm, self.dec_embed, h, self.cfg), \
             {"self": new_self, "cross": cache["cross"]}

@@ -21,16 +21,31 @@ dropped, the experts' SwiGLU batched over the expert axis with ``bmm``
 for each token, its kept slots and adds them in ascending expert order in
 f32, where the reference scatter-adds: no atomics, so two calls on the card
 give the same bits.
+
+On DTensors (the sharded step and the dry-run) the ops DTensor has no
+sharding rule for go through ``local_map`` with the placements the JAX
+package's constraints name: the embedding lookup (``embed_lookup``: the
+vocabulary over the model axis, each rank looking up its own rows and the
+partial rows summed) and the whole MoE (``moe_apply``: the batch over the
+data axes, the experts over the model axis, or their d_ff where the experts
+do not divide it; each rank routes its rows over every expert, runs its own
+experts' slots and adds their share of the combine, and the shares are
+summed).
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed.autoshard import (
+    data_placements, dims_spec, grad_placements, mesh_model_size, model_partial, with_model)
 from repro_torch.kernels import ops
 from repro_torch.models.module import dense_init, dtype_of
 
@@ -77,6 +92,54 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layernorm(self.scale, self.bias, x, self.eps)
+
+
+# ---------------------------------------------------------------------------
+# Head contractions
+# ---------------------------------------------------------------------------
+def merge_heads(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum(eq, x, w)`` for an output projection of heads, ``eq`` one
+    of "...hd,hdm->...m" with named leading dims. On DTensors split over
+    some mesh dim the two head dims are flattened heads first instead, so a
+    head-sharded operand stays sharded (einsum may order them the other
+    way, which DTensor cannot always flatten without a gather)."""
+    if any(isinstance(t, DTensor) and any(not isinstance(p, Replicate) for p in t.placements)
+           for t in (x, w)):
+        h, d, m = w.shape
+        return torch.matmul(x.reshape(*x.shape[:-2], h * d), w.reshape(h * d, m))
+    return torch.einsum(eq, x, w)
+
+
+# ---------------------------------------------------------------------------
+# Embedding lookup
+# ---------------------------------------------------------------------------
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``embed[tokens]``; a DTensor table is looked up through ``local_map``,
+    with the vocabulary over the model axis where it divides."""
+    if not isinstance(embed, DTensor):
+        return embed[tokens]
+    mesh = embed.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    m, v = mesh_model_size(mesh), embed.shape[0]
+    split = m > 1 and v % m == 0
+    base = data_placements(mesh, tokens.shape[0])
+    ep = with_model(mesh, [Replicate()] * mesh.ndim, Shard(0) if split else Replicate())
+    tp = with_model(mesh, base, Replicate())
+    lo = mesh.get_local_rank("model") * (v // m) if split else 0
+
+    def local(el, tl):
+        if not split:
+            return el[tl]
+        mine = (tl >= lo) & (tl < lo + el.shape[0])
+        return torch.where(mine[..., None], el[(tl - lo).clamp(0, el.shape[0] - 1)], 0)
+
+    out = local_map(local, out_placements=(list(with_model(
+        mesh, base, Partial() if split else Replicate())),), in_placements=(ep, tp),
+        in_grad_placements=(grad_placements(mesh, base, Shard(0) if split else Replicate(),
+                                             False), tp),
+        device_mesh=mesh, redistribute_inputs=True)(embed, tokens)
+    return out.redistribute(mesh, tp) if split else out
 
 
 # ---------------------------------------------------------------------------
@@ -147,7 +210,7 @@ def attend(p: Attention, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the output projection."""
     out = ops.flash_attention(q, k, v, causal=causal, window=window,
                               softcap=cfg.attn_softcap)
-    return torch.einsum("bshd,hdm->bsm", out, p.wo)
+    return merge_heads("bshd,hdm->bsm", out, p.wo)
 
 
 def attention_apply(
@@ -172,6 +235,47 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
+def pad_unsharded(x: torch.Tensor, pad: tuple) -> torch.Tensor:
+    """``F.pad(x, pad)`` with zeros. A DTensor whose padded dims no placement
+    shards is padded on each rank's local shard, which needs no
+    communication (DTensor's own rule for the pad op raises an IndexError
+    on a 2-D mesh in torch 2.11)."""
+    if isinstance(x, DTensor):
+        padded = {x.dim() - 1 - i // 2 for i, n in enumerate(pad) if n}
+        if not any(isinstance(p, Shard) and p.dim % x.dim() in padded for p in x.placements):
+            shape = list(x.shape)
+            for i in range(len(pad) // 2):
+                shape[x.dim() - 1 - i] += pad[2 * i] + pad[2 * i + 1]
+            stride = [1] * len(shape)
+            for d in range(len(shape) - 2, -1, -1):
+                stride[d] = stride[d + 1] * shape[d + 1]
+            return DTensor.from_local(F.pad(x.to_local(), pad), x.device_mesh, x.placements,
+                                      run_check=False, shape=torch.Size(shape),
+                                      stride=tuple(stride))
+    return F.pad(x, pad)
+
+
+def write_position(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
+    """``cache[:, pos] = new`` in place (cache (B, S, H, hd), new (B, H,
+    hd)). A DTensor cache is written on the rank whose local positions hold
+    ``pos`` (the sequence may be sharded: the flash-decode layout), from
+    ``new`` placed as the cache's batch and heads."""
+    if not isinstance(cache, DTensor):
+        cache[:, pos] = new.to(cache.dtype)
+        return
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    mesh = cache.device_mesh
+    to_new = {0: Shard(0), 2: Shard(1)}
+    want = [to_new.get(p.dim, Replicate()) if isinstance(p, Shard) else Replicate()
+            for p in cache.placements]
+    if not isinstance(new, DTensor):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    local_new = new.redistribute(mesh, want).to_local()
+    shape, offset = compute_local_shape_and_global_offset(cache.shape, mesh, cache.placements)
+    if offset[1] <= pos < offset[1] + shape[1]:
+        cache.to_local()[:, pos - offset[1]] = local_new.to(cache.dtype)
+
+
 def attention_decode(
     p: Attention,
     x: torch.Tensor,       # (B, 1, D)
@@ -188,11 +292,11 @@ def attention_decode(
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)
-    cache.k[:, pos] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[:, pos] = v_new[:, 0].to(cache.v.dtype)
+    write_position(cache.k, k_new[:, 0], pos)
+    write_position(cache.v, v_new[:, 0], pos)
     out = ops.decode_attention(q[:, 0], cache.k, cache.v, pos + 1, window=window,
                                softcap=cfg.attn_softcap)
-    y = torch.einsum("bhd,hdm->bm", out.to(p.wo.dtype), p.wo)
+    y = merge_heads("bhd,hdm->bm", out.to(p.wo.dtype), p.wo)
     return y[:, None], cache
 
 
@@ -258,7 +362,8 @@ def _gate_probs(p: MoE, x: torch.Tensor) -> torch.Tensor:
 
 
 def moe_route(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Routing:
-    """The dispatch of ``moe_apply`` over x (B, S, D)."""
+    """The dispatch of ``moe_apply`` over x (B, S, D); ``p`` needs only its
+    ``router``."""
     b, s, _ = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = min(int(cfg.capacity_factor * s * k / e + 1), s)
@@ -286,33 +391,90 @@ def moe_route(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Routing:
 
 def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Top-k MoE over tokens of one group. x: (B, S, D) -> (B, S, D)."""
+    if isinstance(x, DTensor):
+        return _moe_sharded(p, x, cfg)
+    return _moe_local(p, p.w_gate, p.w_up, p.w_down, x, cfg, 0).to(x.dtype)
+
+
+def _moe_local(p, w_gate, w_up, w_down, x: torch.Tensor, cfg: ModelConfig,
+               e_lo: int) -> torch.Tensor:
+    """The MoE's f32 output over x from experts [e_lo, e_lo + E_local) of
+    ``w_gate``'s leading axis (all of them, or a slice of their d_ff): the
+    whole output where those are all the experts, else this rank's share."""
     b, s, d = x.shape
-    e = cfg.n_experts
+    e = w_gate.shape[0]
     r = moe_route(p, x, cfg)
     cap = r.cap
+    buf_tok, valid = r.buf_tok, r.valid
+    if e != cfg.n_experts:
+        buf_tok, valid = buf_tok[:, e_lo:e_lo + e], valid[:, e_lo:e_lo + e]
 
     # Dispatch (a gather), invalid buffer slots zero.
-    idx = r.buf_tok.reshape(b, e * cap, 1).expand(-1, -1, d)
+    idx = buf_tok.reshape(b, e * cap, 1).expand(-1, -1, d)
     xb = x.gather(1, idx).reshape(b, e, cap, d)
-    xb = xb.masked_fill(~r.valid[..., None], 0)
+    xb = xb.masked_fill(~valid[..., None], 0)
 
     # Expert FFN, batched over E.
     xe = xb.transpose(0, 1).reshape(e, b * cap, d)
-    h = F.silu(torch.bmm(xe, p.w_gate)) * torch.bmm(xe, p.w_up)
-    yb = torch.bmm(h, p.w_down).reshape(e, b, cap, d).transpose(0, 1)
+    h = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up)
+    yb = torch.bmm(h, w_down).reshape(e, b, cap, d).transpose(0, 1)
     yb = yb.reshape(b, e * cap, d)
 
     # Combine: each token gathers its kept slots and adds them in f32, in
     # ascending expert order (the order of the reference's scatter-add).
     order = torch.argsort(r.top_e, dim=-1)
     e_s, p_s, c_s = (t.gather(-1, order) for t in (r.top_e, r.top_p, r.rank))
+    kept = c_s < cap
+    if e != cfg.n_experts:   # another rank's experts add nothing here
+        kept = kept & (e_s >= e_lo) & (e_s < e_lo + e)
+        e_s = torch.clamp(e_s - e_lo, 0, e - 1)
     slot = (e_s * cap + torch.clamp(c_s, max=cap - 1)).reshape(b, -1, 1)
     rows = yb.gather(1, slot.expand(-1, -1, d)).reshape(b, s, -1, d)
-    contrib = torch.where((c_s < cap)[..., None], rows.to(torch.float32) * p_s[..., None], 0.0)
+    contrib = torch.where(kept[..., None], rows.to(torch.float32) * p_s[..., None], 0.0)
     y = contrib[:, :, 0]
     for j in range(1, contrib.shape[2]):
         y = y + contrib[:, :, j]
-    return y.to(x.dtype)
+    return y
+
+
+def _moe_sharded(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``moe_apply`` on DTensors: the JAX package's constraint on the expert
+    buffers (``autoshard.dims_spec`` of the (B, E, C, F) hidden buffer:
+    experts over the model axis, else their d_ff) taken as ``local_map``
+    placements; each rank's share of the output is summed over the model
+    axis, then cast to x's dtype. Outside ``activation_sharding`` nothing is
+    pinned and the experts stay whole on every rank."""
+    mesh = x.device_mesh
+    m = mesh_model_size(mesh)
+    e, f = cfg.n_experts, cfg.d_ff
+    hidden = dims_spec((x.shape[0], e, 1, f), ("batch", "model", None, None),
+                       alt=("batch", None, None, "model"))
+    mode = None if m == 1 else "experts" if hidden.axes(1) else "d_ff" if hidden.axes(3) \
+        else None
+    base = data_placements(mesh, x.shape[0])
+    rep = [Replicate()] * mesh.ndim
+    xp = with_model(mesh, base, Replicate())
+    rp = tuple(rep)
+    up = with_model(mesh, rep, Shard(0) if mode == "experts" else
+                         Shard(2) if mode else Replicate())
+    dp = with_model(mesh, rep, Shard(0) if mode == "experts" else
+                         Shard(1) if mode else Replicate())
+    e_lo = mesh.get_local_rank("model") * (e // m) if mode == "experts" else 0
+    split = mode is not None
+    out = local_map(
+        lambda router, *a: _moe_local(SimpleNamespace(router=router), *a, cfg, e_lo),
+        out_placements=(list(with_model(mesh, base, Partial() if split else Replicate())),),
+        in_placements=(rp, up, up, dp, xp),
+        in_grad_placements=(grad_placements(mesh, base, Replicate(), split),
+                            grad_placements(mesh, base, up[-1] if split else Replicate(),
+                                             False),
+                            grad_placements(mesh, base, up[-1] if split else Replicate(),
+                                             False),
+                            grad_placements(mesh, base, dp[-1] if split else Replicate(),
+                                             False),
+                            model_partial(mesh, xp) if split else xp),
+        device_mesh=mesh, redistribute_inputs=True)(p.router, p.w_gate, p.w_up, p.w_down, x)
+    return out.redistribute(mesh, xp).to(x.dtype)
 
 
 def moe_aux_loss(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -330,8 +492,8 @@ def moe_aux_loss(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def causal_conv1d(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv. w: (W, C), x: (B, S, C); summed in f32."""
     width, s = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, width - 1, 0))
-    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    xp = pad_unsharded(x, (0, 0, width - 1, 0))
+    out = torch.zeros_like(x, dtype=torch.float32, memory_format=torch.contiguous_format)
     for i in range(width):
         out = out + xp[:, i:i + s].to(torch.float32) * w[i]
     return out.to(x.dtype)

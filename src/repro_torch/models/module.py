@@ -2,12 +2,15 @@
 
 Counterpart of ``repro/models/module.py``. Parameters live in
 ``nn.Module``s; each block is its own module in an ``nn.ModuleList``, so
-the stacking helpers and remat policies of the JAX package have no
-counterpart here. Storage dtype (``param_dtype``) and compute dtype are
-decoupled as there.
+the stacking helpers of the JAX package have no counterpart here. Of its
+remat policies the port has "block" (each block rematerialised, its inputs
+alone saved: the default) and "none". ``TrainConfig.remat`` chooses one; the
+train steps run the model under ``remat_policy`` of it.
+Storage dtype (``param_dtype``) and compute dtype are decoupled as there.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence, Union
 
@@ -40,3 +43,28 @@ def embed_init(generator: torch.Generator, vocab: int, dim: int,
     x = torch.randn((vocab, dim), generator=generator, device=device,
                     dtype=torch.float32)
     return (x * 0.02).to(dtype)
+
+
+REMAT_POLICIES = ("none", "block")
+_REMAT = {"policy": "block"}
+
+
+def check_remat(name: str) -> str:
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"remat policy {name!r}: the port has {REMAT_POLICIES}")
+    return name
+
+
+@contextlib.contextmanager
+def remat_policy(name: str):
+    """The blocks run under ``name`` (a ``TrainConfig.remat``) inside."""
+    prev = _REMAT["policy"]
+    _REMAT["policy"] = check_remat(name)
+    try:
+        yield
+    finally:
+        _REMAT["policy"] = prev
+
+
+def current_remat() -> str:
+    return _REMAT["policy"]

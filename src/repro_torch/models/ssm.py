@@ -25,7 +25,7 @@ from torch import nn
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_chunked  # noqa: F401  (the plain SSD)
-from repro_torch.models.layers import causal_conv1d
+from repro_torch.models.layers import causal_conv1d, merge_heads
 from repro_torch.models.module import dense_init, dtype_of
 
 
@@ -109,7 +109,7 @@ def _ssd_core(p: Mamba, u: torch.Tensor, cfg: ModelConfig):
     y, state = ops.ssd_scan(x, dt * A, dt, B_, C_, chunk=cfg.ssm_chunk)
     y = y + p.D[None, None, :, None] * x.to(torch.float32)
     y = _head_rmsnorm(p.norm_scale, y.to(u.dtype) * F.silu(z), cfg.norm_eps)
-    out = torch.einsum("bshp,hpd->bsd", y, p.w_out)
+    out = merge_heads("bshp,hpd->bsd", y, p.w_out)
     return out, state, tail
 
 
@@ -159,7 +159,7 @@ def ssm_decode(p: Mamba, u: torch.Tensor, cache: MambaCache, cfg: ModelConfig):
     y = torch.einsum("bn,bhnp->bhp", C_, state)
     y = (y + p.D[None, :, None] * x)[:, None].to(u.dtype)                # (B, 1, H, P)
     y = _head_rmsnorm(p.norm_scale, y * F.silu(z), cfg.norm_eps)
-    out = torch.einsum("bshp,hpd->bsd", y, p.w_out)
+    out = merge_heads("bshp,hpd->bsd", y, p.w_out)
     return out, MambaCache(conv_x=new_cx.to(cache.conv_x.dtype),
                            conv_B=new_cb.to(cache.conv_B.dtype),
                            conv_C=new_cc.to(cache.conv_C.dtype), ssm=state)

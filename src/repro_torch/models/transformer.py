@@ -39,12 +39,15 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed.autoshard import (
+    block_weights, constrain_act, constrain_logits, data_placements, gather_fsdp,
+    mesh_model_size, with_model)
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
-from repro_torch.models.module import dtype_of, embed_init
+from repro_torch.models.module import current_remat, dtype_of, embed_init
 
 
 # ---------------------------------------------------------------------------
@@ -194,30 +197,93 @@ class Block(nn.Module):
 # ---------------------------------------------------------------------------
 def _embed_tokens(embed: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig,
                   patches: Optional[torch.Tensor] = None) -> torch.Tensor:
-    h = embed[tokens].to(dtype_of(cfg.compute_dtype))
+    h = L.embed_lookup(embed, tokens).to(dtype_of(cfg.compute_dtype))
     if cfg.family == "vlm" and patches is not None:
         # LLaVA stub frontend: prepend pre-computed patch embeddings.
         h = torch.cat([patches.to(h.dtype), h], dim=1)
     root_d = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32, device=h.device))
-    return h * root_d.to(h.dtype)
+    return constrain_act(h * root_d.to(h.dtype))
 
 
 def _head(final_norm: L.RMSNorm, w: torch.Tensor, h: torch.Tensor,
           cfg: ModelConfig) -> torch.Tensor:
     h = final_norm(h)
+    w = gather_fsdp(w)
     # f32 logits: products of the (compute-dtype) operands summed in f32.
     logits = torch.matmul(h.to(torch.float32), w.to(h.dtype).to(torch.float32).t())
     logits = L._softcap(logits, cfg.logit_softcap)
     if cfg.padded_vocab != cfg.vocab_size:
         pad_mask = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad_mask, -1e30)
-    return logits
+    return constrain_logits(logits)
+
+
+def _label_logprob(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return logp.gather(-1, labels[..., None].long())[..., 0]
+
+
+class _VocabParallelLogprob(torch.autograd.Function):
+    """Each label's log-probability from logits whose vocabulary is split
+    over ``group`` (this rank holds columns [lo, lo + V_local)): the max,
+    the sum of exponentials and the label's logit are all-reduced over the
+    group; the backward is local, softmax minus the label's one-hot on this
+    rank's columns."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo, group):
+        from torch.distributed import _functional_collectives as fc
+        x = logits.to(torch.float32)
+        m = fc.all_reduce(x.amax(dim=-1), "max", group)
+        e = torch.exp(x - m[..., None])
+        se = fc.all_reduce(e.sum(dim=-1), "sum", group)
+        mine = (labels >= lo) & (labels < lo + x.shape[-1])
+        idx = (labels.long() - lo).clamp(0, x.shape[-1] - 1)
+        picked = torch.where(mine, x.gather(-1, idx[..., None])[..., 0], 0.0)
+        picked = fc.all_reduce(picked, "sum", group)
+        ctx.save_for_backward(e, se, mine, idx)
+        ctx.dtype = logits.dtype
+        return picked - m - torch.log(se)
+
+    @staticmethod
+    def backward(ctx, dll):
+        e, se, mine, idx = ctx.saved_tensors
+        grad = -(e / se[..., None])
+        grad.scatter_add_(-1, idx[..., None], mine[..., None].to(grad.dtype))
+        return (grad * dll[..., None]).to(ctx.dtype), None, None, None
+
+
+def _label_logprob_sharded(logits, labels) -> torch.Tensor:
+    """``_label_logprob`` on DTensors through ``local_map``: the batch over the
+    data axes and, where it divides the model axis, the vocabulary over it
+    (``_VocabParallelLogprob``); else each rank takes whole rows."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = logits.device_mesh
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    m, v = mesh_model_size(mesh), logits.shape[-1]
+    split = m > 1 and v % m == 0
+    base = data_placements(mesh, logits.shape[0])
+    lp = with_model(mesh, base, Shard(2) if split else Replicate())
+    yp = with_model(mesh, base, Replicate())
+    if split:
+        group, lo = mesh.get_group("model"), mesh.get_local_rank("model") * (v // m)
+        body = lambda x, y: _VocabParallelLogprob.apply(x, y, lo, group)  # noqa: E731
+    else:
+        body = _label_logprob
+    return local_map(body, out_placements=(list(yp),), in_placements=(lp, yp),
+                     in_grad_placements=(lp, yp), device_mesh=mesh,
+                     redistribute_inputs=True)(logits, labels)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    ll = logp.gather(-1, labels[..., None].long())[..., 0]
+    from torch.distributed.tensor import DTensor
+    if isinstance(logits, DTensor):
+        ll = _label_logprob_sharded(logits, labels)
+    else:
+        ll = _label_logprob(logits, labels)
     if mask is None:
         return -ll.mean()
     return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1)
@@ -231,18 +297,23 @@ def _lm_loss(logits: torch.Tensor, batch: dict, cfg: ModelConfig) -> torch.Tenso
 
 def _run_blocks(blocks: Iterable[nn.Module], h: torch.Tensor, *args) -> torch.Tensor:
     """``block(h, positions, *args)`` for each block, positions 0 .. S - 1
-    of h. Under autograd each block is rematerialised, as the JAX model's
+    of h, each block's output pinned batch-sharded (``constrain_act``).
+    Under autograd each block is rematerialised, as the JAX model's
     ``remat_name = "block"``: only its inputs are kept, and its forward runs
     again in the backward. The blocks draw no random numbers, so the RNG
     state is not saved."""
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     for block in blocks:
-        if torch.is_grad_enabled() and (
+        if current_remat() == "block" and torch.is_grad_enabled() and (
                 h.requires_grad or any(p.requires_grad for p in block.parameters())):
-            h = checkpoint(block, h, positions, *args, use_reentrant=False,
-                           preserve_rng_state=False)
+            # A block that gathers its weights when it runs (FSDP,
+            # distributed.elastic) recomputes in full, releasing them again.
+            with set_checkpoint_early_stop(not hasattr(block, "_fsdp_params")):
+                h = checkpoint(block, h, positions, *args, use_reentrant=False,
+                               preserve_rng_state=False)
         else:
             h = block(h, positions, *args)
+        h = constrain_act(h)
     return h
 
 
@@ -284,7 +355,8 @@ class LM(nn.Module):
         positions = torch.arange(h.shape[1], device=h.device)[None, :]
         caches = []
         for block in self.blocks:
-            h, cache = block.prefill(h, positions)
+            with block_weights(block):
+                h, cache = block.prefill(h, positions)
             caches.append(cache)
         return self._logits(h[:, -1:]), caches
 
@@ -295,7 +367,8 @@ class LM(nn.Module):
         h = _embed_tokens(self.embed, token, self.cfg)
         new = []
         for block, c in zip(self.blocks, cache):
-            h, c = block.decode(h, c, pos)
+            with block_weights(block):
+                h, c = block.decode(h, c, pos)
             new.append(c)
         return self._logits(h), new
 

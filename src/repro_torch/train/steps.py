@@ -24,13 +24,17 @@ the state's modules. Gradients come from ``torch.autograd.grad``, so no
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, NamedTuple, Tuple
+import contextlib
+from typing import Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.config import RunConfig
+from repro_torch.distributed.autoshard import chunk_rows
 from repro_torch.core.tier_split import Acts, TierPlan, make_extract_fn, make_tune_loss_fn
 from repro_torch.models.api import merge_params
+from repro_torch.models.module import check_remat, remat_policy
 from repro_torch.models.transformer import LM, Prefix, Suffix
 from repro_torch.optim.adamw import OptState, adamw_update, init_opt_state
 
@@ -52,31 +56,35 @@ def init_train_state(model: LM, rc: RunConfig, plan: TierPlan) -> TrainState:
 
 def _chunks(tree, n_chunks: int) -> Iterator:
     """``n_chunks`` equal slices of every tensor of a batch dict, an int8
-    payload tuple or a tensor, along the leading axis."""
-    lead = (next(iter(tree.values())) if isinstance(tree, dict)
-            else tree[0] if isinstance(tree, tuple) else tree).shape[0]
-    if lead % n_chunks:
-        raise ValueError(f"a batch of {lead} does not split into {n_chunks} chunks")
-    size = lead // n_chunks
-    for i in range(0, lead, size):
-        if isinstance(tree, dict):
-            yield {k: v[i:i + size] for k, v in tree.items()}
-        elif isinstance(tree, tuple):
-            yield tuple(x[i:i + size] for x in tree)
-        else:
-            yield tree[i:i + size]
+    payload tuple or a tensor, along the leading axis (``chunk_rows``: a
+    DTensor on each rank's local rows)."""
+    if isinstance(tree, dict):
+        parts = {k: chunk_rows(v, n_chunks) for k, v in tree.items()}
+        for i in range(n_chunks):
+            yield {k: v[i] for k, v in parts.items()}
+    elif isinstance(tree, tuple):
+        yield from zip(*(chunk_rows(x, n_chunks) for x in tree))
+    else:
+        yield from chunk_rows(tree, n_chunks)
 
 
 def _accumulate(tune, trainable: Suffix, params: Dict[str, torch.Tensor],
-                chunks) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+                chunks, constrain: Optional[Callable] = None,
+                ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Sum of the chunks' gradients in f32, divided by their number, and the
-    mean loss."""
-    grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    mean loss. ``constrain(tree, "grads")`` places the accumulator and each
+    chunk's gradients (ZeRO-sharded in the dry-run)."""
+    grads = {k: torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format)
              for k, p in params.items()}
+    if constrain is not None:
+        grads = constrain(grads, "grads")
     loss_sum, n_chunks = 0.0, 0
     for acts, bt in chunks:
         loss = tune(trainable, acts, bt)
-        for acc, g in zip(grads.values(), torch.autograd.grad(loss, list(params.values()))):
+        step = torch.autograd.grad(loss, list(params.values()))
+        if constrain is not None:
+            step = constrain(dict(zip(params, step)), "grads").values()
+        for acc, g in zip(grads.values(), step):
             acc.add_(g)
         loss_sum = loss_sum + loss.detach()
         n_chunks += 1
@@ -85,30 +93,50 @@ def _accumulate(tune, trainable: Suffix, params: Dict[str, torch.Tensor],
     return grads, loss_sum / n_chunks
 
 
-def build_hapi_train_step(model: LM, rc: RunConfig, plan: TierPlan) -> Callable:
-    """(state, batch) -> (state, metrics)."""
+@contextlib.contextmanager
+def _running(tc, constrain: Optional[Callable] = None):
+    """A train step's model under ``tc.remat``. Where a step is given a
+    ``constrain`` hook its tensors may be DTensors: plain tensors the model
+    makes (positions, masks) then join them as replicated."""
+    with remat_policy(tc.remat), (implicit_replication() if constrain is not None
+                                  else contextlib.nullcontext()):
+        yield
+
+
+def build_hapi_train_step(model: LM, rc: RunConfig, plan: TierPlan, *,
+                          constrain: Optional[Callable] = None) -> Callable:
+    """(state, batch) -> (state, metrics). ``constrain(tree, kind)`` may
+    place the boundary activations (kind "acts": a tensor or an int8
+    payload) and the gradients (kind "grads": a dict by name) on a mesh."""
     tune = make_tune_loss_fn(plan)
     tc = rc.train
+    check_remat(tc.remat)
 
     def train_step(state: TrainState, batch: dict):
+        with _running(tc, constrain):
+            return _train_step(state, batch)
+
+    def _train_step(state: TrainState, batch: dict):
         b = next(iter(batch.values())).shape[0]
         cos_b = min(plan.cos_batch, b)          # §5.5: the adapted COS batch
         micro = min(tc.microbatch or b, b)      # grad-accumulation chunk
         extract = make_extract_fn(TierPlan(plan.split, cos_b, plan.compress, plan.decision))
         params = dict(state.trainable.named_parameters())
+        acts_of = (lambda a: constrain(a, "acts")) if constrain else (lambda a: a)
         if cos_b <= micro:
             # Fused path: extract chunk -> grad on chunk -> accumulate. One
             # chunk's boundary activations live at a time.
-            chunks = ((extract(state.frozen, bt), bt)
+            chunks = ((acts_of(extract(state.frozen, bt)), bt)
                       for bt in _chunks(batch, max(1, b // cos_b)))
         else:
             # Coarse-extraction path (batch adaptation granted a big COS
             # batch): extract at cos_b, then accumulate over micro chunks of
             # the stored activations.
             n_chunks = max(1, b // micro)
-            chunks = zip(_chunks(extract(state.frozen, batch), n_chunks),
-                         _chunks(batch, n_chunks))
-        grads, loss = _accumulate(tune, state.trainable, params, chunks)
+            chunks = ((acts_of(a), bt) for a, bt in zip(
+                _chunks(acts_of(extract(state.frozen, batch)), n_chunks),
+                _chunks(batch, n_chunks)))
+        grads, loss = _accumulate(tune, state.trainable, params, chunks, constrain)
         _, new_opt, om = adamw_update(params, grads, state.opt, tc)
         return TrainState(state.frozen, state.trainable, new_opt), {"loss": loss, **om}
 
@@ -119,11 +147,13 @@ def build_baseline_train_step(model: LM, rc: RunConfig, split: int) -> Callable:
     """Status quo (paper Fig. 5a): full model, training-batch granularity,
     grads on the trainable suffix only."""
     tc = rc.train
+    check_remat(tc.remat)
 
     def train_step(state: TrainState, batch: dict):
         params = dict(state.trainable.named_parameters())
-        loss = merge_params(state.frozen, state.trainable).loss(batch)
-        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        with _running(tc):
+            loss = merge_params(state.frozen, state.trainable).loss(batch)
+            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
         _, new_opt, om = adamw_update(params, grads, state.opt, tc)
         return TrainState(state.frozen, state.trainable, new_opt), \
             {"loss": loss.detach(), **om}
@@ -131,24 +161,31 @@ def build_baseline_train_step(model: LM, rc: RunConfig, split: int) -> Callable:
     return train_step
 
 
-def build_tier_steps(model: LM, rc: RunConfig, plan: TierPlan):
+def build_tier_steps(model: LM, rc: RunConfig, plan: TierPlan, *,
+                     constrain: Optional[Callable] = None):
     """The two-program tier split (paper Fig. 8): ``extract_step`` runs on
     the storage tier, ``tune_step`` on the compute tier; the returned
-    activations cross the link between them (optionally int8)."""
+    activations cross the link between them (optionally int8).
+    ``constrain(tree, "grads")`` places the gradients, as in
+    ``build_hapi_train_step``."""
     tc = rc.train
+    check_remat(tc.remat)
     extract = make_extract_fn(plan)
     tune = make_tune_loss_fn(plan)
 
     def extract_step(frozen: Prefix, batch: dict) -> Acts:
-        return extract(frozen, batch)
+        with _running(tc, constrain):
+            return extract(frozen, batch)
 
     def tune_step(trainable: Suffix, opt: OptState, acts: Acts, batch: dict):
         b = next(iter(batch.values())).shape[0]
         n_chunks = max(1, b // min(tc.microbatch or b, b))
         params = dict(trainable.named_parameters())
-        grads, loss = _accumulate(tune, trainable, params,
-                                     zip(_chunks(acts, n_chunks), _chunks(batch, n_chunks)))
-        _, new_opt, om = adamw_update(params, grads, opt, tc)
+        with _running(tc, constrain):
+            grads, loss = _accumulate(tune, trainable, params,
+                                      zip(_chunks(acts, n_chunks), _chunks(batch, n_chunks)),
+                                      constrain)
+            _, new_opt, om = adamw_update(params, grads, opt, tc)
         return trainable, new_opt, {"loss": loss, **om}
 
     return extract_step, tune_step

@@ -1272,3 +1272,73 @@ def test_cuda_collectives_compressed_psum_one_rank_nccl(card, tmp_path):
     local = local.reshape(carry.shape)
     assert torch.equal(total, local.to(x.dtype))
     assert torch.equal(new_error, (carry.float() - local.float()).to(x.dtype))
+
+
+@pytest.fixture
+def nccl_mesh(card, tmp_path):
+    """A (1, 1) ("data", "model") DeviceMesh on a one-rank NCCL group."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_small_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        yield make_small_mesh(1, 1, device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _dt(mesh, t):
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    return distribute_tensor(t, mesh, [Replicate(), Replicate()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,window", [(128, None), (64, 100)])
+def test_cuda_kernels_under_local_map_bit_equal_the_direct_calls(nccl_mesh, hd, window):
+    """Each kernel entry point on DTensors of a (1, 1) NCCL mesh runs the
+    kernel through local_map on the local shard: the same launches and the
+    same bits as the direct call, the flash and SSD gradients too."""
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    q = torch.from_numpy(_normal((2, 512, 8, hd), 201)).to(dev, bf)
+    k = torch.from_numpy(_normal((2, 512, 2, hd), 202)).to(dev, bf)
+    v = torch.from_numpy(_normal((2, 512, 2, hd), 203)).to(dev, bf)
+    tops.reset_launch_counts()
+    got = tops.flash_attention(*(_dt(nccl_mesh, t) for t in (q, k, v)), window=window)
+    assert torch.equal(got.to_local(), tfk.flash_attention_cuda(q, k, v, window=window))
+    qg, kg, vg = (_dt(nccl_mesh, t).requires_grad_() for t in (q, k, v))
+    dout = torch.from_numpy(_normal((2, 512, 8, hd), 204)).to(dev, bf)
+    tops.flash_attention(qg, kg, vg, window=window).backward(_dt(nccl_mesh, dout))
+    qd, kd, vd = (t.clone().requires_grad_() for t in (q, k, v))
+    tops.flash_attention(qd, kd, vd, window=window).backward(dout)
+    for a, b in ((qg, qd), (kg, kd), (vg, vd)):
+        assert torch.equal(a.grad.to_local(), b.grad)
+    x = torch.from_numpy(_normal((4, 300, 5120), 205, 3.0)).to(dev, bf)
+    qx, sx = tops.quantize_int8(_dt(nccl_mesh, x))
+    qe, se = tik.quantize_int8_cuda(x)
+    assert torch.equal(qx.to_local(), qe) and torch.equal(sx.to_local(), se)
+    assert torch.equal(tops.dequantize_int8(qx, sx).to_local(), tik.dequantize_int8_cuda(qe, se))
+    cache = torch.from_numpy(_normal((2, 700, 2, hd), 206)).to(dev, bf)
+    qd1 = q[:, 0].contiguous()
+    got = tops.decode_attention(_dt(nccl_mesh, qd1), _dt(nccl_mesh, cache),
+                                _dt(nccl_mesh, cache), 600, window=window)
+    assert torch.equal(got.to_local(), tdk.decode_attention_cuda(qd1, cache, cache, 600,
+                                                                 window=window))
+    xs = torch.from_numpy(_normal((2, 512, 8, 64), 207)).to(dev, bf)
+    dta = -torch.rand((2, 512, 8), device=dev) * 0.1
+    bc = torch.from_numpy(_normal((2, 512, 16), 208, 0.3)).to(dev, bf)
+    args = (xs, dta, dta.abs(), bc, bc)
+    dargs = [_dt(nccl_mesh, t).requires_grad_() for t in args]
+    y, state = tops.ssd_scan(*dargs, chunk=128)
+    y.sum().backward()
+    pargs = [t.clone().requires_grad_() for t in args]
+    y2, state2 = tops.ssd_scan(*pargs, chunk=128)
+    y2.sum().backward()
+    assert torch.equal(y.to_local(), y2) and torch.equal(state.to_local(), state2)
+    for a, b in zip(dargs, pargs):
+        assert torch.equal(a.grad.to_local(), b.grad)
+    n = tops.launch_counts()
+    assert n["flash_attention"] == 4 and n["flash_attention_bwd"] == 2
+    assert n["quantize_int8"] == 2 and n["dequantize_int8"] == 2 and n["decode_attention"] == 2
+    assert n["ssd_scan"] == 2 and n["ssd_scan_bwd"] == 2
