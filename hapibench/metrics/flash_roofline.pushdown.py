@@ -1,0 +1,6 @@
+"""flash_roofline.pushdown: the flash forward and backward launches' summed bounds over those kernels' device time in the traced window, in percent."""
+from hapibench.readings import roofline
+
+
+def read(r):
+    return roofline(r, "pushdown", "flash")
