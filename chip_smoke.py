@@ -217,6 +217,7 @@ from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.models.layers import KVCache, MoE, moe_apply, moe_route  # noqa: E402
 from repro_torch.models.transformer import Sublayer, _embed_tokens, _run_blocks  # noqa: E402
 from repro_torch.models.vision import PAPER_MODELS, EncoderBlock  # noqa: E402
+from repro_torch.obs import program as obs_program  # noqa: E402
 from repro_torch.train import steps as train_steps  # noqa: E402
 from repro_torch.train.steps import (  # noqa: E402
     build_decode_step, build_hapi_train_step, build_prefill_step, init_train_state)
@@ -2011,49 +2012,58 @@ def check_full_width_training(arch: str = ARCH, seq: int = 128) -> None:
 
 
 class StepClock:
-    """Wraps the train step's extract and AdamW (looked up in
-    ``repro_torch.train.steps`` at each step) to time them, synchronised, and
-    to count the wire bytes extract emits; tune is the rest of the step less
-    ``capture_s``. With ``capture``, the gradient AdamW is handed for the
-    first trainable tensor whose name ends so is kept, in bf16 on the host,
-    in ``grads`` (``capture_s``: the time that takes)."""
+    """The program's spans and counters (``repro_torch.obs.program``) turned
+    on over the train steps: after ``reset`` and one step, ``parts()`` is the
+    step's span summary (host, stream and self ms of ``train.extract``,
+    ``train.tune``, ``train.adamw``, ...) and ``wire`` the bytes its
+    extraction emitted (``wire_bytes_total``). With ``capture``, the gradient
+    AdamW is handed for the first trainable tensor whose name ends so is
+    kept, in bf16 on the host, in ``grads`` (``capture_s``: the time that
+    takes, inside the ``train.adamw`` span)."""
 
     def __init__(self, capture: Optional[str] = None):
-        self.extract_fn = train_steps.make_extract_fn
         self.adamw = train_steps.adamw_update
         self.capture, self.grads = capture, []
-        self.reset()
+        self._tracing = obs_program.tracing()
 
     def reset(self):
-        self.extract_s = self.adamw_s = self.capture_s = 0.0
-        self.wire = 0
+        self.capture_s = 0.0
+        obs_program.TRACER.clear()
+        obs_program.METRICS.clear()
 
-    def _timed(self, fn, attr):
+    @property
+    def wire(self) -> int:
+        return int(obs_program.METRICS.total("wire_bytes_total"))
+
+    def parts(self) -> dict:
+        return obs_program.summary()["spans"]
+
+    def _captured(self, fn):
         def run(*a, **k):
-            if attr == "adamw_s" and self.capture:
-                t0 = time.perf_counter()
-                name = next(n for n in a[1] if n.endswith(self.capture))
-                self.grads.append(a[1][name].to(torch.bfloat16).cpu())
-                self.capture_s += time.perf_counter() - t0
-            torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            setattr(self, attr, getattr(self, attr) + time.perf_counter() - t0)
-            if attr == "extract_s":
-                self.wire += wire_bytes(out)
-            return out
+            name = next(n for n in a[1] if n.endswith(self.capture))
+            self.grads.append(a[1][name].to(torch.bfloat16).cpu())
+            self.capture_s += time.perf_counter() - t0
+            return fn(*a, **k)
         return run
 
     def __enter__(self):
-        train_steps.make_extract_fn = lambda plan: self._timed(self.extract_fn(plan),
-                                                               "extract_s")
-        train_steps.adamw_update = self._timed(self.adamw, "adamw_s")
+        self._tracing.__enter__()
+        self.reset()
+        if self.capture:
+            train_steps.adamw_update = self._captured(self.adamw)
         return self
 
     def __exit__(self, *exc):
-        train_steps.make_extract_fn = self.extract_fn
         train_steps.adamw_update = self.adamw
+        self._tracing.__exit__(*exc)
+
+
+def step_parts(parts: dict) -> str:
+    """A step's program spans as host / stream ms."""
+    return ", ".join(f"{name[len('train.'):]} {parts[name]['host_ms']:.1f} / "
+                     f"{parts[name]['stream_ms']:.1f}"
+                     for name in ("train.step", "train.extract", "train.tune", "train.adamw"))
 
 
 TrainRun = collections.namedtuple("TrainRun", "launches fwd_shapes bwd_shapes wire grads")
@@ -2115,14 +2125,14 @@ def train_slice(arch: str = ARCH) -> TrainRun:
             state, metrics = step(state, batch)
             loss = float(metrics["loss"])
             step_s = time.perf_counter() - t0 - clock.capture_s
+            parts = clock.parts()
             rose = {k: v - before[k] for k, v in ops.launch_counts().items()}
             shapes = tuple(dict(collections.Counter(now) - was) for now, was in
                            zip((flash.fwd_shapes, flash.bwd_shapes), shapes0))
             counts_want, *shapes_want = want[kind]
-            log(f"train step {i + 1} ({kind}): {1e3 * step_s:.1f} ms (extract "
-                f"{1e3 * clock.extract_s:.1f}, tune forward+backward "
-                f"{1e3 * (step_s - clock.extract_s - clock.adamw_s):.1f}, AdamW "
-                f"{1e3 * clock.adamw_s:.1f}), {arch}, loss {loss:.6f}, grad norm "
+            log(f"train step {i + 1} ({kind}): {1e3 * step_s:.1f} ms (the program's spans, host "
+                f"/ stream ms: {step_parts(parts)}; gradient kept {1e3 * clock.capture_s:.1f}), "
+                f"{arch}, loss {loss:.6f}, grad norm "
                 f"{float(metrics['grad_norm']):.4g}, lr {float(metrics['lr']):.3g}, wire "
                 f"{clock.wire} bytes, peak device memory {torch.cuda.max_memory_allocated()} "
                 f"bytes, launches {rose}, flash by shape (forward, backward) {shapes}")

@@ -34,6 +34,7 @@ from repro_torch.distributed.autoshard import cat_rows, chunk_rows
 from repro_torch.kernels import ops
 from repro_torch.models.module import dtype_of
 from repro_torch.models.transformer import Prefix, Suffix
+from repro_torch.obs.program import METRICS, TRACER, count_copy
 
 # What extract() emits: the activations, or int8 codes and their f32 scales.
 Acts = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
@@ -101,17 +102,32 @@ def _microbatches(batch: dict, mb: int):
 
 
 def make_extract_fn(plan: TierPlan) -> Callable[[Prefix, dict], Acts]:
-    """Feature extraction at COS-batch granularity (frozen => no grads)."""
+    """Feature extraction at COS-batch granularity (frozen => no grads).
+    Traced, a call is a ``train.extract`` span (a root where the storage
+    tier calls it alone) over its microbatches' ``extract.prefix`` and
+    ``extract.quantize``; the slicing and the final concatenation are its
+    self time, and its payload counts in ``wire_bytes_total``."""
+    tr, mx = TRACER, METRICS
 
     def extract(frozen: Prefix, batch: dict) -> Acts:
         outs = []
-        with torch.no_grad():
+        with tr.span("train.extract", batch), torch.no_grad():
             for mb in _microbatches(batch, plan.cos_batch):
-                acts = frozen(mb)
-                outs.append(ops.quantize_int8(acts) if plan.compress else acts)
-        if plan.compress:
-            return (cat_rows([q for q, _ in outs]), cat_rows([s for _, s in outs]))
-        return cat_rows(outs)
+                with tr.span("extract.prefix", mb):
+                    acts = frozen(mb)
+                if plan.compress:
+                    with tr.span("extract.quantize", acts):
+                        acts = ops.quantize_int8(acts)
+                outs.append(acts)
+                if tr.enabled:
+                    mx.inc("microbatches_total")
+            if plan.compress:
+                out = (cat_rows([q for q, _ in outs]), cat_rows([s for _, s in outs]))
+            else:
+                out = cat_rows(outs)
+        if tr.enabled:
+            mx.inc("wire_bytes_total", wire_bytes(out))
+        return out
 
     return extract
 
@@ -141,21 +157,44 @@ def make_vision_executor(vm, *, compress: bool, device="cuda") -> Callable:
     boundary activations, or with ``compress`` the int8 codes and float32
     scales of ``kernels/ops.quantize_int8`` on each microbatch's boundary.
     Each image's result depends on that image alone, not on ``cos_batch``.
-    The server counts int8 leaves as the measured wire."""
+    The server counts int8 leaves as the measured wire. Traced, a call is an
+    ``executor.request`` span over each microbatch's ``executor.copy_in``,
+    ``extract.prefix`` and ``extract.quantize`` and the final
+    ``executor.copy_out``."""
     dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    tr, mx = TRACER, METRICS
 
     def execute(payload: dict, split: int, cos_batch: int):
         x = payload["x"]
         outs = []
-        with torch.no_grad():
+        with tr.span("executor.request", x, dev), torch.no_grad():
             for lo in range(0, len(x), cos_batch):
-                mb = torch.from_numpy(np.ascontiguousarray(x[lo:lo + cos_batch],
-                                                          dtype=np.float32)).to(dev)
-                acts = vm.apply_range(mb, 0, split).contiguous()
-                outs.append(ops.quantize_int8(acts) if compress else acts)
-        if compress:
-            return (torch.cat([q for q, _ in outs]).cpu().numpy(),
-                    torch.cat([s for _, s in outs]).cpu().numpy())
-        return torch.cat(outs).cpu().numpy()
+                part = x[lo:lo + cos_batch]
+                with tr.span("executor.copy_in", part, dev):
+                    host = torch.from_numpy(np.ascontiguousarray(part, dtype=np.float32))
+                    mb = host.to(dev)
+                with tr.span("extract.prefix", mb):
+                    acts = vm.apply_range(mb, 0, split).contiguous()
+                if compress:
+                    with tr.span("extract.quantize", acts):
+                        acts = ops.quantize_int8(acts)
+                outs.append(acts)
+                if tr.enabled:
+                    mx.inc("microbatches_total")
+                    if on_card:
+                        count_copy("h2d_bytes_total", [host])
+            with tr.span("executor.copy_out", where=dev):
+                if compress:
+                    back = [torch.cat([q for q, _ in outs]).cpu(),
+                            torch.cat([s for _, s in outs]).cpu()]
+                else:
+                    back = [torch.cat(outs).cpu()]
+                out = tuple(h.numpy() for h in back)
+        if tr.enabled:
+            mx.inc("wire_bytes_total", sum(h.nbytes for h in back))
+            if on_card:
+                count_copy("d2h_bytes_total", back)
+        return out if compress else out[0]
 
     return execute

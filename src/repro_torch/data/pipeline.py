@@ -8,6 +8,9 @@ assembles global batches in object order, and exposes a *checkpointable
 cursor* — on restart, training resumes mid-epoch at the exact object
 (fault tolerance, DESIGN.md §5). Host-side double buffering overlaps the
 next batch's assembly with the current step (paper Fig. 6's pipelining).
+Traced (``repro_torch.obs.program``), the consumer's wait is a ``data.wait``
+span and each assembly a ``data.assemble`` span on the producer thread's
+track ("cos-data").
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 
 from repro_torch.config import ModelConfig, ShapeConfig
+from repro_torch.obs.program import TRACER
 
 
 @dataclass
@@ -98,21 +102,24 @@ class COSDataPipeline:
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         q: Queue = Queue(maxsize=self.prefetch)
         stop = object()
+        tr = TRACER
 
         def producer():
             i = self.state.next_object
             while True:
-                b = self._assemble(i)
+                with tr.span("data.assemble"):
+                    b = self._assemble(i)
                 if b is None:
                     q.put(stop)
                     return
                 q.put((i + self.per_batch, b))
                 i += self.per_batch
 
-        th = threading.Thread(target=producer, daemon=True)
+        th = threading.Thread(target=producer, daemon=True, name="cos-data")
         th.start()
         while True:
-            item = q.get()
+            with tr.span("data.wait"):
+                item = q.get()
             if item is stop:
                 self.state.epoch += 1
                 self.state.next_object = 0

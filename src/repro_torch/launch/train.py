@@ -21,7 +21,6 @@ embeddings, tokens and labels for the VLM (``seq`` counts the
 from __future__ import annotations
 
 import argparse
-import time
 
 import numpy as np
 import torch
@@ -33,14 +32,22 @@ from repro_torch.core.tier_split import plan_tiers
 from repro_torch.cos.objectstore import ObjectStore
 from repro_torch.data.pipeline import COSDataPipeline, PipelineState, synthetic_dataset
 from repro_torch.models.api import build_model
+from repro_torch.obs.program import TRACER, count_copy, format_summary, summary, tracing
 from repro_torch.train.steps import build_hapi_train_step, init_train_state
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
-    """A numpy batch as tensors on ``device``; integer columns as int64."""
-    return {k: torch.from_numpy(v).to(device=device, dtype=torch.long
-                                      if np.issubdtype(v.dtype, np.integer) else None)
-            for k, v in batch.items()}
+    """A numpy batch as tensors on ``device``; integer columns as int64.
+    Traced, a ``data.to_device`` span; the host arrays' bytes count in
+    ``h2d_bytes_total`` where ``device`` is a card."""
+    tr = TRACER
+    with tr.span("data.to_device", batch, device):
+        out = {k: torch.from_numpy(v).to(device=device, dtype=torch.long
+                                         if np.issubdtype(v.dtype, np.integer) else None)
+               for k, v in batch.items()}
+    if tr.enabled and torch.device(device).type == "cuda":
+        count_copy("h2d_bytes_total", batch.values())
+    return out
 
 
 def run_training(
@@ -95,29 +102,31 @@ def run_training(
 
     pipe = COSDataPipeline(store, "train", global_batch=batch, state=pstate)
     it = iter(pipe)
-    t0 = time.time()
     losses = []
     i = start_step
-    while i < steps:
-        try:
-            raw = next(it)
-        except StopIteration:
-            it = iter(pipe)
-            continue
-        state, metrics = step_fn(state, to_device(raw, device))
-        losses.append(float(metrics["loss"]))
-        i += 1
-        if i % log_every == 0 or i == steps:
-            dt = time.time() - t0
-            print(f"step {i:5d}  loss {losses[-1]:.4f}  lr {float(metrics['lr']):.2e} "
-                  f"gnorm {float(metrics['grad_norm']):.3f}  {dt:.1f}s")
-        if ckpt_dir and (i % ckpt_every == 0 or i == steps):
-            save_checkpoint(ckpt_dir, i, state,
-                            extra={"pipeline": pipe.state.to_dict(),
-                                   "arch": arch, "loss": losses[-1]})
-        if kill_at and i == kill_at:
-            print(f"[kill] simulating crash at step {i}")
-            return {"killed_at": i, "losses": losses}
+    # The program's spans and counters over the run; each log line prints
+    # their summary (per-step medians of the spans' host, stream and self
+    # times, reading which waits for the device).
+    with tracing():
+        while i < steps:
+            try:
+                raw = next(it)
+            except StopIteration:
+                it = iter(pipe)
+                continue
+            state, metrics = step_fn(state, to_device(raw, device))
+            losses.append(float(metrics["loss"]))
+            i += 1
+            if i % log_every == 0 or i == steps:
+                print(f"step {i:5d}  loss {losses[-1]:.4f}  lr {float(metrics['lr']):.2e} "
+                      f"gnorm {float(metrics['grad_norm']):.3f}\n{format_summary(summary())}")
+            if ckpt_dir and (i % ckpt_every == 0 or i == steps):
+                save_checkpoint(ckpt_dir, i, state,
+                                extra={"pipeline": pipe.state.to_dict(),
+                                       "arch": arch, "loss": losses[-1]})
+            if kill_at and i == kill_at:
+                print(f"[kill] simulating crash at step {i}")
+                return {"killed_at": i, "losses": losses}
 
     return {"final_loss": losses[-1], "losses": losses, "steps": i}
 

@@ -14,6 +14,10 @@ all strictly additive next to the golden-hashed :class:`EventLog`:
 
 Vocabulary is pinned by :mod:`repro_torch.obs.schema`; shared percentile math
 lives in :mod:`repro_torch.obs.hist`.
+
+:mod:`repro_torch.obs.program` holds the running program's own tracer and
+registry: the same classes on the host's real clock, off by default, with
+each span's stream time on the card (imported on its own: it needs torch).
 """
 from repro_torch.obs.export import chrome_trace, validate_chrome_trace, write_trace
 from repro_torch.obs.hist import DEFAULT_TIME_BUCKETS, bucket_counts, percentile

@@ -26,7 +26,7 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Tuple
 
 from repro_torch.obs.hist import DEFAULT_TIME_BUCKETS, bucket_counts, percentile
-from repro_torch.obs.schema import validate_metric_key
+from repro_torch.obs.schema import METRIC_KEYS, validate_metric_key
 
 LabelSet = Tuple[Tuple[str, str], ...]
 
@@ -93,16 +93,22 @@ class MetricsRegistry:
     """Counters / gauges / histograms keyed by ``(key, labelset)``.
 
     All three families share the key namespace pinned by
-    :data:`repro_torch.obs.schema.METRIC_KEYS`; a key may only ever be used as
+    :data:`repro_torch.obs.schema.METRIC_KEYS` (``keys``: the running program's
+    registry takes ``PROGRAM_METRIC_KEYS``); a key may only ever be used as
     one family (mixing raises, catching copy-paste instrumentation)."""
 
     def __init__(self, max_label_sets: int = 4096,
-                 overflow: str = "raise") -> None:
+                 overflow: str = "raise", keys: frozenset = METRIC_KEYS) -> None:
         if overflow not in ("raise", "rollup"):
             raise ValueError(f"overflow must be 'raise' or 'rollup', "
                              f"got {overflow!r}")
         self.max_label_sets = max_label_sets
         self.overflow = overflow
+        self.keys = keys
+        self.clear()
+
+    def clear(self) -> None:
+        """Drops every series."""
         self.rolled_up = 0
         self._counters: Dict[str, Dict[LabelSet, float]] = {}
         self._gauges: Dict[str, Dict[LabelSet, float]] = {}
@@ -115,7 +121,7 @@ class MetricsRegistry:
             # Key already admitted to this family: schema and cross-family
             # checks ran at creation and key sets only grow, so skip both.
             return series
-        validate_metric_key(key)
+        validate_metric_key(key, self.keys)
         for other in (self._counters, self._gauges, self._hists):
             if other is not fam and key in other:
                 raise ValueError(

@@ -19,6 +19,11 @@ port has neither yet), so a trace of either package reads the same:
 The tracer and the registry validate against these sets at emission
 time, so an unregistered name fails the emitting run loudly instead of
 silently producing an unqueryable trace.
+
+The running program's own tracer and registry (:mod:`repro_torch.obs.program`,
+on the host's real clock) validate against two further sets, which the JAX
+package does not have: :data:`PROGRAM_SPAN_NAMES` and
+:data:`PROGRAM_METRIC_KEYS`.
 """
 from __future__ import annotations
 
@@ -60,11 +65,35 @@ METRIC_KEYS = frozenset({
 })
 
 
-def validate_span_name(name: str) -> str:
+#: Span names of the running program, by layer (``tr.span("...")`` sites).
+PROGRAM_SPAN_NAMES = frozenset({
+    # data path: the consumer's wait, the producer thread's batch, the copy in
+    "data.wait", "data.assemble", "data.to_device",
+    # tier split and train step (a tier step's root is train.step or
+    # train.extract)
+    "train.step", "train.extract", "train.tune", "train.adamw",
+    # inside the extraction, per COS-batch microbatch
+    "extract.prefix", "extract.quantize",
+    # the storage tier's vision executor: one request, its two copies
+    "executor.request", "executor.copy_in", "executor.copy_out",
+})
+
+#: Counter keys of the running program (``mx.inc("...")`` sites).
+PROGRAM_METRIC_KEYS = frozenset({
+    "steps_total", "chunks_total", "microbatches_total",
+    # the boundary payload where the extraction returns it
+    "wire_bytes_total",
+    # copies between host and card, labelled memory=pinned|pageable
+    "h2d_bytes_total", "d2h_bytes_total",
+})
+
+
+def validate_span_name(name: str, names: frozenset = SPAN_NAMES) -> str:
     """Refuse to emit a span name the schema does not know."""
-    if name not in SPAN_NAMES:
+    if name not in names:
+        which = "SPAN_NAMES" if names is SPAN_NAMES else "PROGRAM_SPAN_NAMES"
         raise ValueError(
-            f"span name {name!r} is not in repro_torch.obs.schema.SPAN_NAMES; "
+            f"span name {name!r} is not in repro_torch.obs.schema.{which}; "
             f"register it there so traces stay queryable")
     return name
 
@@ -76,10 +105,11 @@ def validate_tier(tier: str) -> str:
     return tier
 
 
-def validate_metric_key(key: str) -> str:
+def validate_metric_key(key: str, keys: frozenset = METRIC_KEYS) -> str:
     """Refuse to touch a metric key the schema does not know."""
-    if key not in METRIC_KEYS:
+    if key not in keys:
+        which = "METRIC_KEYS" if keys is METRIC_KEYS else "PROGRAM_METRIC_KEYS"
         raise ValueError(
-            f"metric key {key!r} is not in repro_torch.obs.schema.METRIC_KEYS; "
+            f"metric key {key!r} is not in repro_torch.obs.schema.{which}; "
             f"register it there so dashboards stay stable")
     return key

@@ -21,6 +21,13 @@ make the train steps take the model, as the JAX ones do, but the steps run
 the state's modules. Gradients come from ``torch.autograd.grad``, so no
 ``.grad`` is left on a parameter. The serving steps run under
 ``torch.no_grad``.
+
+With the program's tracer on (``repro_torch.obs.program``) a Hapi step is the
+span tree ``train.step`` -> ``train.extract`` per extraction (its microbatches'
+``extract.prefix`` and ``extract.quantize`` inside), ``train.tune`` per chunk
+and ``train.adamw``; the compute tier's ``tune_step`` is a ``train.step`` of
+its own. The Hapi step looks ``make_extract_fn`` and ``adamw_update`` up in
+this module at each call, so a caller may wrap them.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from repro_torch.core.tier_split import Acts, TierPlan, make_extract_fn, make_tu
 from repro_torch.models.api import merge_params
 from repro_torch.models.module import check_remat, remat_policy
 from repro_torch.models.transformer import LM, Prefix, Suffix
+from repro_torch.obs.program import METRICS, TRACER
 from repro_torch.optim.adamw import OptState, adamw_update, init_opt_state
 
 
@@ -74,20 +82,24 @@ def _accumulate(tune, trainable: Suffix, params: Dict[str, torch.Tensor],
     """Sum of the chunks' gradients in f32, divided by their number, and the
     mean loss. ``constrain(tree, "grads")`` places the accumulator and each
     chunk's gradients (ZeRO-sharded in the dry-run)."""
+    tr, mx = TRACER, METRICS
     grads = {k: torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format)
              for k, p in params.items()}
     if constrain is not None:
         grads = constrain(grads, "grads")
     loss_sum, n_chunks = 0.0, 0
     for acts, bt in chunks:
-        loss = tune(trainable, acts, bt)
-        step = torch.autograd.grad(loss, list(params.values()))
-        if constrain is not None:
-            step = constrain(dict(zip(params, step)), "grads").values()
-        for acc, g in zip(grads.values(), step):
-            acc.add_(g)
-        loss_sum = loss_sum + loss.detach()
+        with tr.span("train.tune", bt):
+            loss = tune(trainable, acts, bt)
+            step = torch.autograd.grad(loss, list(params.values()))
+            if constrain is not None:
+                step = constrain(dict(zip(params, step)), "grads").values()
+            for acc, g in zip(grads.values(), step):
+                acc.add_(g)
+            loss_sum = loss_sum + loss.detach()
         n_chunks += 1
+        if tr.enabled:
+            mx.inc("chunks_total")
     for g in grads.values():
         g.div_(n_chunks)
     return grads, loss_sum / n_chunks
@@ -111,10 +123,14 @@ def build_hapi_train_step(model: LM, rc: RunConfig, plan: TierPlan, *,
     tune = make_tune_loss_fn(plan)
     tc = rc.train
     check_remat(tc.remat)
+    tr, mx = TRACER, METRICS
 
     def train_step(state: TrainState, batch: dict):
-        with _running(tc, constrain):
-            return _train_step(state, batch)
+        with tr.span("train.step", batch), _running(tc, constrain):
+            out = _train_step(state, batch)
+        if tr.enabled:
+            mx.inc("steps_total")
+        return out
 
     def _train_step(state: TrainState, batch: dict):
         b = next(iter(batch.values())).shape[0]
@@ -137,7 +153,8 @@ def build_hapi_train_step(model: LM, rc: RunConfig, plan: TierPlan, *,
                 _chunks(acts_of(extract(state.frozen, batch)), n_chunks),
                 _chunks(batch, n_chunks)))
         grads, loss = _accumulate(tune, state.trainable, params, chunks, constrain)
-        _, new_opt, om = adamw_update(params, grads, state.opt, tc)
+        with tr.span("train.adamw", where=grads):
+            _, new_opt, om = adamw_update(params, grads, state.opt, tc)
         return TrainState(state.frozen, state.trainable, new_opt), {"loss": loss, **om}
 
     return train_step
@@ -172,6 +189,7 @@ def build_tier_steps(model: LM, rc: RunConfig, plan: TierPlan, *,
     check_remat(tc.remat)
     extract = make_extract_fn(plan)
     tune = make_tune_loss_fn(plan)
+    tr, mx = TRACER, METRICS
 
     def extract_step(frozen: Prefix, batch: dict) -> Acts:
         with _running(tc, constrain):
@@ -181,11 +199,14 @@ def build_tier_steps(model: LM, rc: RunConfig, plan: TierPlan, *,
         b = next(iter(batch.values())).shape[0]
         n_chunks = max(1, b // min(tc.microbatch or b, b))
         params = dict(trainable.named_parameters())
-        with _running(tc, constrain):
+        with tr.span("train.step", batch), _running(tc, constrain):
             grads, loss = _accumulate(tune, trainable, params,
                                       zip(_chunks(acts, n_chunks), _chunks(batch, n_chunks)),
                                       constrain)
-            _, new_opt, om = adamw_update(params, grads, opt, tc)
+            with tr.span("train.adamw", where=grads):
+                _, new_opt, om = adamw_update(params, grads, opt, tc)
+        if tr.enabled:
+            mx.inc("steps_total")
         return trainable, new_opt, {"loss": loss, **om}
 
     return extract_step, tune_step

@@ -1342,3 +1342,65 @@ def test_cuda_kernels_under_local_map_bit_equal_the_direct_calls(nccl_mesh, hd, 
     assert n["flash_attention"] == 4 and n["flash_attention_bwd"] == 2
     assert n["quantize_int8"] == 2 and n["dequantize_int8"] == 2 and n["decode_attention"] == 2
     assert n["ssd_scan"] == 2 and n["ssd_scan_bwd"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_program_spans_resolve_within_their_profiler_ranges(card, tmp_path):
+    """A traced Hapi step on the card (smoke config at a 128-lane bf16
+    boundary, heads of 64, int8, COS batch 2, two chunks): every span's stream time
+    resolves and is positive, and lies within its profiler range and the
+    device operations launched under it: at least the first such operation's
+    start to the last one's end, at most the range's start to that end."""
+    import dataclasses
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config import HapiConfig, RunConfig, ShapeConfig, TrainConfig
+    from repro_torch.core.tier_split import plan_tiers
+    from repro_torch.models.api import build_model
+    from repro_torch.obs import program as P
+    from repro_torch.train import steps as tsteps
+
+    cfg = dataclasses.replace(get_smoke_config("mistral-nemo-12b"), d_model=128, n_heads=2,
+                              n_kv_heads=1, head_dim=64, param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    shape = ShapeConfig("t", "train", 256, 4)
+    hapi = HapiConfig(compress_transfer=True, cos_batch=2, cos_batch_min=1)
+    rc = RunConfig(model=cfg, shape=shape, hapi=hapi,
+                   train=TrainConfig(microbatch=2, warmup_steps=1, total_steps=4))
+    plan = plan_tiers(cfg, shape, hapi)
+    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0)).to(card)
+    state = tsteps.init_train_state(model, rc, plan)
+    step = tsteps.build_hapi_train_step(model, rc, plan)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 256)))
+    batch = {"tokens": toks.to(card), "labels": toks.to(card)}
+    state, _ = step(state, batch)                      # builds and warms the kernels
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            P.tracing() as tr:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    spans = tr.spans
+    assert len(spans) == 10 and all(s.stream_ms is not None and s.stream_ms > 0 for s in spans)
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    ev = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    ranges = [e for e in ev if e.get("cat") == "user_annotation"
+              and e["name"].startswith(P.RANGE_PREFIX)]
+    launches = [e for e in ev if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    device = {e["args"]["correlation"]: e for e in ev
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    for name in {s.name for s in spans}:
+        mine = sorted((e["ts"], e["ts"] + e["dur"]) for e in ranges
+                      if e["name"] == P.RANGE_PREFIX + name)
+        ours = sorted(tr.by_name(name), key=lambda s: s.t0)
+        assert len(mine) == len(ours), name
+        for (a, b), s in zip(mine, ours):
+            ops = [device[e["args"]["correlation"]] for e in launches
+                   if a <= e["ts"] <= b and e["args"].get("correlation") in device]
+            assert ops, name
+            first = min(o["ts"] for o in ops)
+            last = max(o["ts"] + o["dur"] for o in ops)
+            tol = 50.0 + 0.01 * (last - a)               # microseconds
+            assert last - first - tol <= 1e3 * s.stream_ms <= last - a + tol, \
+                (name, s.stream_ms, first - a, last - a)

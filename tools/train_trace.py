@@ -7,12 +7,15 @@
 Builds ``--arch`` (mistral-nemo-12b or mamba2-1.3b) at its published widths,
 cut to ``--layers`` blocks (bf16, seeded random weights), plans the tier
 split as ``chip_smoke.py``'s training phases do (int8 boundary, COS batch 2,
-microbatch 2), and times
-``build_hapi_train_step`` on one repeated batch, host clock around work that
-ends in ``torch.cuda.synchronize()``: the first step and three more (warm).
-One more warm step runs under ``torch.profiler``: the sum of its kernels'
-device times (the device's busy time; one stream, so kernels do not
-overlap), the idle share of that step's wall time, and the kernel time by
+microbatch 2), and runs ``build_hapi_train_step`` on one repeated batch: the
+first step, timed on the host clock around work that ends in
+``torch.cuda.synchronize()``, then three warm steps with the program's
+tracer on (``repro_torch.obs.program``), whose span summary it prints: per
+span the median host, stream and self ms a step. One more warm step runs
+traced under ``torch.profiler``: the sum of its kernels' device times (the
+device's busy time; one stream, so kernels do not overlap), the idle share
+of that step's wall time, the idle seconds by the innermost
+``repro_torch.*`` range open at each gap's midpoint, and the kernel time by
 name, largest first, grouped into f32 matmuls (the head), bf16 matmuls,
 the port's own kernels and the rest, and each of the port's kernels apart.
 Prints the card's name and power limit and one JSON line.
@@ -40,6 +43,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.tier_split import plan_tiers  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.obs import program as obs  # noqa: E402
 from repro_torch.train.steps import build_hapi_train_step, init_train_state  # noqa: E402
 
 # Kernel names of the port's own CUDA kernels, as the profiler reports them
@@ -107,11 +111,20 @@ def main() -> int:
     ops.reset_launch_counts()
     cold = timed()
     launches = {k: v for k, v in ops.launch_counts().items() if v}
-    warm = [timed() for _ in range(3)]
+    with obs.tracing():
+        for _ in range(3):
+            timed()
+        spans = obs.summary()
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            obs.tracing():
         traced = timed()
-    kernels = kernel_times(prof)
+    device, host = obs.profiler_events(prof)
+    (s0, s1), = [(a, b) for n, a, b in host if n == obs.RANGE_PREFIX + "train.step"]
+    gaps = obs.idle_gaps(device, host, (s0, max([s1] + [b for _, _, b in device])))
+    # The spans' ranges show on the device's timeline too: not kernels.
+    kernels = {k: ms for k, ms in kernel_times(prof).items()
+               if not k.startswith(obs.RANGE_PREFIX)}
     busy = sum(kernels.values())
     groups: dict = {}
     port: dict = {}
@@ -122,13 +135,15 @@ def main() -> int:
     top = dict(list(kernels.items())[:15])
     row = {"arch": args.arch, "layers": args.layers, "split": plan.split, "batch": args.batch,
            "seq": args.seq,
-           "cold_ms": cold, "warm_ms": warm, "traced_ms": traced, "device_busy_ms": busy,
-           "idle_share": 1 - busy / traced if busy else None, "groups_ms": groups,
-           "port_kernels_ms": port, "launches_per_step": launches, "top_kernels_ms": top}
+           "cold_ms": cold, "spans": spans, "traced_ms": traced, "device_busy_ms": busy,
+           "idle_share": 1 - busy / traced if busy else None, "idle_s_by_span": gaps,
+           "groups_ms": groups, "port_kernels_ms": port, "launches_per_step": launches,
+           "top_kernels_ms": top}
     print(f"train step, {args.arch} at {args.layers} blocks (split {plan.split}), "
-          f"{args.batch} x {args.seq}: cold {cold:.1f} ms, warm "
-          f"{', '.join(f'{x:.1f}' for x in warm)} ms, traced {traced:.1f} ms; device busy "
+          f"{args.batch} x {args.seq}: cold {cold:.1f} ms, traced {traced:.1f} ms; device busy "
           f"{busy:.1f} ms (idle share {row['idle_share']}); launches {launches}")
+    print(f"the program's spans over 3 warm steps, medians a step:\n{obs.format_summary(spans)}")
+    print(f"idle s of the traced step by the innermost span: {gaps}")
     for name, ms in groups.items():
         print(f"  {ms:9.3f} ms  [{name}]")
     for name, ms in port.items():
