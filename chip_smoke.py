@@ -8,8 +8,11 @@ per source, all at once) and holds each kernel against its plain PyTorch
 version on the card (the flash backward also against SDPA's backward as a
 yardstick; each flash case on the route ``fwd_route`` names, checked against
 the C side's and printed: ``wgmma`` for bf16, split TF32 for f32 at head
-dims 64 and 128, FMA for f32 at 16, 32 and 256), then drives the port's
-three paths at full width:
+dims 64 and 128, FMA for f32 at 16, 32 and 256) and the LM head's
+tensor-core route (``kernels/head.py``: the split kernel bit for bit, the
+route's f32 sums against f64 at the train paths' head shapes, each train
+path's heads all on the route), then drives the port's three paths at full
+width:
 
 * HAPI's forward pushdown path as a storage tier serving requests: a
   full-width two-block mistral-nemo-12b gives the same loss on the card
@@ -198,6 +201,7 @@ from repro_torch.distributed.collectives import (  # noqa: E402
     compressed_psum, decompress_boundary, tier_transfer)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import int8_transfer, ssd_scan  # noqa: E402
+from repro_torch.kernels import head as head_k  # noqa: E402
 from repro_torch.kernels import decode_attention as decode_k  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
@@ -215,6 +219,7 @@ from repro_torch.launch.train import run_training  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.models.layers import KVCache, MoE, moe_apply, moe_route  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.transformer import Sublayer, _embed_tokens, _run_blocks  # noqa: E402
 from repro_torch.models.vision import PAPER_MODELS, EncoderBlock  # noqa: E402
 from repro_torch.obs import program as obs_program  # noqa: E402
@@ -659,6 +664,82 @@ def check_int8() -> dict:
         log(f"{name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{lib}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return {"quantize_int8": quant, "dequantize_int8": dequant}
+
+
+# The train paths' heads: rows of a microbatch (2 x 4,096), d_model, padded
+# vocabulary.
+HEAD_SHAPES = {ARCH: (8192, 5120, 131072), "mamba2-1.3b": (8192, 2048, 50688)}
+
+
+def check_head() -> dict:
+    """The LM head's tensor-core route (``kernels/head.py``): the split
+    kernel bit for bit against the plain split on both routes, then at each
+    train path's head shape the route's f32 sums (logits, dH, dW) against
+    the f64 sums of the exact products beside the f32 path's, and the times
+    of the route's forward and backward beside the f32 path's (the plain
+    version: the casts, one f32 product, autograd) and beside the bound of
+    the head's 6 M D V model operations at the bf16 peak; the split of one
+    chunk beside its bytes' bound."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for rows, cols, ld, first, want in ((8192, 5248, 131072, 5248, "vector"),
+                                        (8192, 5120, 50688, 0, "vector"),
+                                        (37, 200, 203, 1, "scalar"), (64, 512, 516, 1, "scalar")):
+        g = (torch.randn(rows, ld, device="cuda", generator=gen) * 1e-4)[:, first:first + cols]
+        g[0, :4] = torch.tensor([0.0, -0.0, 1e-40, 3e-36])
+        before = dict(head_k.split_routes)
+        got = head_k.split3_bf16_cuda(g)
+        check(head_k.split_routes[want] == before[want] + 1, f"split3_bf16 {rows} x {cols}: route")
+        check(torch.equal(got.view(torch.int16), ref.split3_bf16(g).view(torch.int16)),
+              f"split3_bf16 not bit-equal at {rows} x {cols}, stride {ld}")
+    rows_out = {}
+    for arch, (m, d, v) in HEAD_SHAPES.items():
+        h = torch.randn(m, d, device="cuda", generator=gen).to(torch.bfloat16)
+        w = (torch.randn(v, d, device="cuda", generator=gen) * d ** -0.5).to(torch.bfloat16)
+        g = torch.randn(m, v, device="cuda", generator=gen) * (1.0 / (m * v ** 0.5))
+        exact = (h.double() @ w.double().t(), g.double() @ w.double(),
+                 g.double().t() @ h.double())
+        route = (head_k.CARD.mm(h, w.t()),
+                 *head_k.head_grads(g, h, w, head_k.CARD, dw_dtype=torch.float32))
+        f32 = (h.float() @ w.float().t(), g @ w.float(), g.t() @ h.float())
+        errs = {}
+        for name, a, b, want in zip(("logits", "dH", "dW"), route, f32, exact):
+            errs[name] = tuple(float((x.double() - want).norm() / want.norm()) for x in (a, b))
+            check(errs[name][0] <= head_k.F32_SUM_TOL, f"{arch} head {name}: {errs[name]}")
+        del exact, route, f32
+        free()
+        hh, ww = h.clone().requires_grad_(), w.clone().requires_grad_()
+
+        def tensor_cores():
+            torch.autograd.grad(head_k.HeadProductFn.apply(hh, ww, head_k.CARD), (hh, ww), g)
+
+        def plain():
+            torch.autograd.grad(hh.float() @ ww.float().t(), (hh, ww), g)
+        cols = head_k.chunk_cols(m, v)
+        gc_ = g[:, :cols]
+        sb, sby = bound(*work.split3_work(m * cols), HW.peak_flops_f32)
+        # h and W read and their gradients written in bf16, G read and the
+        # logits written in f32; the model's three products.
+        hb, hby = bound(4 * (m * d + v * d) + 8 * m * v, 6 * m * d * v, HW.peak_flops_bf16)
+        row = dict(ms=time_ms(tensor_cores, 3, 1), plain_ms=time_ms(plain, 2, 1),
+                   bound_ms=hb, bound_by=hby, library_ms=None, rel_l2_to_f64=errs,
+                   split_ms=device_ms(lambda: head_k.split3_bf16_cuda(gc_), 10),
+                   split_plain_ms=time_ms(lambda: ref.split3_bf16(gc_), 5),
+                   split_bound_ms=sb, split_bound_by=sby, chunk=(m, cols))
+        log(f"head {arch} ({m} x {d} x {v}): forward and backward {row['ms']:.3f} ms on the "
+            f"tensor cores, f32 path {row['plain_ms']:.3f} ms, bound {hb:.3f} ms ({hby}); "
+            f"relative L2 to the f64 sums (route, f32 path) {errs}; split of a chunk "
+            f"({m} x {cols}) {row['split_ms']:.4f} ms, plain {row['split_plain_ms']:.4f} ms, "
+            f"bound {sb:.4f} ms ({sby})")
+        rows_out[arch] = row
+        del h, w, g, hh, ww, gc_
+        free()
+    nemo = rows_out[ARCH]
+    return {"head_products": {k: nemo[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                    "library_ms", "rel_l2_to_f64")},
+            "split3_bf16": dict(ms=nemo["split_ms"], plain_ms=nemo["split_plain_ms"],
+                                bound_ms=nemo["split_bound_ms"],
+                                bound_by=nemo["split_bound_by"], library_ms=None,
+                                chunk=nemo["chunk"])}
 
 
 FLASH_CASES = [
@@ -2066,7 +2147,8 @@ def step_parts(parts: dict) -> str:
                      for name in ("train.step", "train.extract", "train.tune", "train.adamw"))
 
 
-TrainRun = collections.namedtuple("TrainRun", "launches fwd_shapes bwd_shapes wire grads")
+TrainRun = collections.namedtuple("TrainRun",
+                                  "launches fwd_shapes bwd_shapes wire grads heads splits")
 # The trainable tensor whose gradients a train path keeps for the
 # collectives phase: llava's first trainable block's w_up (4,096 x 14,336).
 TRAIN_CAPTURE = {LLAVA_ARCH: ".mlp.w_up"}
@@ -2109,8 +2191,9 @@ def train_slice(arch: str = ARCH) -> TrainRun:
     log(f"{arch} at {cfg.n_layers} layers ({cfg.n_blocks} blocks), batch {path.batch} x "
         f"{path.seq}: {n_train} trainable parameters (the blocks past {plan.split}, the norms, "
         f"the head), {sum(v.numel() for v in frozen0.values())} frozen")
-    losses, peaks = [], []
+    losses, peaks, heads = [], [], 0
     ops.reset_launch_counts()
+    splits0 = head_k.split_launch_count()
     with StepClock(TRAIN_CAPTURE.get(arch)) as clock:
         for i, kind in enumerate(["fused"] * TRAIN_FUSED_STEPS + ["coarse"]):
             if kind == "coarse":
@@ -2143,6 +2226,13 @@ def train_slice(arch: str = ARCH) -> TrainRun:
                   f"train step {i + 1}: launches {rose}, expected {counts_want}")
             check(list(shapes) == shapes_want, f"train step {i + 1}: flash launches by shape "
                   f"{shapes}, expected {shapes_want}")
+            # Each chunk's head takes the tensor-core route.
+            routes = {k: v for k, v in obs_program.METRICS.snapshot()["counters"].items()
+                      if k.startswith("head_products_total")}
+            chunks = obs_program.METRICS.total("chunks_total")
+            check(routes == {"head_products_total{route=split_bf16}": chunks},
+                  f"train step {i + 1}: head routes {routes} over {chunks} chunks")
+            heads += int(chunks)
             losses.append(loss)
     check(losses[TRAIN_FUSED_STEPS - 1] < losses[0], f"loss did not fall: {losses}")
     check(int(state.opt.step) == TRAIN_FUSED_STEPS + 1, "optimizer step count")
@@ -2150,8 +2240,11 @@ def train_slice(arch: str = ARCH) -> TrainRun:
     log(f"train {arch}: losses {[round(x, 6) for x in losses]}; peak device memory over "
         f"the steps {max(peaks)} bytes; frozen prefix unchanged bit for bit: {same}")
     check(same, "the frozen prefix changed")
+    splits = head_k.split_launch_count() - splits0
+    log(f"train {arch}: {heads} head calls, all on the tensor-core route, {splits} launches "
+        f"of split3_bf16")
     run = TrainRun(ops.launch_counts(), collections.Counter(flash.fwd_shapes),
-                   collections.Counter(flash.bwd_shapes), clock.wire, clock.grads)
+                   collections.Counter(flash.bwd_shapes), clock.wire, clock.grads, heads, splits)
     del lm, state, step, frozen0, batch
     free()
     return run
@@ -2920,6 +3013,19 @@ def same_bits(a: dict, b: dict, what: str) -> None:
           f"{differ[:4]}")
 
 
+@contextlib.contextmanager
+def f32_head():
+    """The LM head on its f32 path inside the block, as a DTensor's head
+    always takes it (``kernels.head.head_route``): the plain steps that the
+    sharded ones are held to bit for bit run the same head."""
+    was = transformer.head_route
+    transformer.head_route = lambda h, w: "f32"
+    try:
+        yield
+    finally:
+        transformer.head_route = was
+
+
 def timed_step(step, state, batch):
     """(state, loss, ms, launches of each kernel) of one train step."""
     before = ops.launch_counts()
@@ -3028,11 +3134,13 @@ def _sharded(smi: str, start_dry, dry: dict) -> dict:
     host0 = host_state(state)
     batch = pushdown_request(cfg, path.batch, path.seq, 200)
 
-    # The plain (unsharded) steps: 2, a snapshot, 2 more.
+    # The plain (unsharded) steps: 2, a snapshot, 2 more; their head on the
+    # f32 path, as the sharded steps' DTensors take it.
     plain = []
     for i in range(2 * SHARDED_STEPS):
         torch.cuda.reset_peak_memory_stats()
-        state, loss, ms_, rose = timed_step(plain_step, state, batch)
+        with f32_head():
+            state, loss, ms_, rose = timed_step(plain_step, state, batch)
         plain.append((loss, ms_, rose, torch.cuda.max_memory_allocated()))
         if i == SHARDED_STEPS - 1:
             snap_half = snapshot(state)
@@ -3177,7 +3285,8 @@ def main() -> int:
 
     kernels = {}
     for name, fn in (("flash", check_flash), ("flash_bwd", check_flash_bwd), ("int8", check_int8),
-                     ("decode", check_decode), ("ssd", check_ssd), ("ssd_bwd", check_ssd_bwd)):
+                     ("decode", check_decode), ("ssd", check_ssd), ("ssd_bwd", check_ssd_bwd),
+                     ("head", check_head)):
         kernels.update(phase(name, fn))
     phase("full_width", check_full_width)
     for arch, seq in FULL_WIDTH_TRAINING:
@@ -3261,6 +3370,18 @@ def main() -> int:
     line += [{"name": row, "shape": shape, "route": "cuda", "source": KERNELS[kernel][0],
               "replaces": KERNELS[kernel][1], "launches": n, **kernels[row]}
              for kernel, row, n, shape in own_rows]
+    # The head's route: its calls and the split's launches on the train paths.
+    heads = sum(run.heads for run in trained.values())
+    splits = sum(run.splits for run in trained.values())
+    check(heads > 0 and splits > 0, "the train paths never took the head's tensor-core route")
+    line += [{"name": "head_products", "route": "cuda (cuBLAS bf16 products, f32 sums)",
+              "source": "src/repro_torch/kernels/head.py",
+              "replaces": "none: XLA's einsum, src/repro/models/transformer.py:225",
+              "launches": heads, **kernels["head_products"]},
+             {"name": "split3_bf16", "route": "cuda",
+              "source": "src/repro_torch/csrc/head_split.cu",
+              "replaces": "none: added for the head's backward", "launches": splits,
+              **kernels["split3_bf16"]}]
     log(smi)
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -27,7 +27,7 @@ from typing import Dict, Iterable, Sequence, Tuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("int8_transfer", "flash_attention", "flash_attention_bwd", "decode_attention",
-           "ssd_scan", "ssd_scan_bwd")
+           "ssd_scan", "ssd_scan_bwd", "head_split")
 # --split-compile=0: nvcc optimizes a source's kernels on every core, which
 # halves the build (decode_attention.cu instantiates 90 kernels).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -379,6 +379,18 @@ def quantize_int8(x: torch.Tensor, tile: int = 128):
     return q.reshape(*lead, d), scale[..., 0]
 
 
+def split3_bf16(g: torch.Tensor) -> torch.Tensor:
+    """The (3, ...) bf16 terms of an f32 ``g``: ``g1 = bf16(g)``,
+    ``g2 = bf16(g - g1)``, ``g3 = bf16(g - g1 - g2)``, each rounded to
+    nearest even; ``g1 + g2 + g3 == g`` exactly for ``|g| >= 2**-110``
+    (``csrc/head_split.cu``)."""
+    g1 = g.to(torch.bfloat16)
+    r = g - g1.to(torch.float32)
+    g2 = r.to(torch.bfloat16)
+    g3 = (r - g2.to(torch.float32)).to(torch.bfloat16)
+    return torch.stack([g1, g2, g3])
+
+
 def dequantize_int8(q: torch.Tensor, scales: torch.Tensor,
                     dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     *lead, d = q.shape

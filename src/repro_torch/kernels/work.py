@@ -107,6 +107,12 @@ def dequantize_work(n: int, out_itemsize: int, n_scales: int) -> Work:
     return n * (1 + out_itemsize) + n_scales * 4, n
 
 
+def split3_work(n: int) -> Work:
+    """The f32 gradient read, its three bf16 terms written; five operations
+    an element (three roundings, two subtractions)."""
+    return n * (4 + 3 * 2), 5 * n
+
+
 def decode_live(length: int, window: Optional[int]) -> int:
     """Live keys of one decode query at ``length`` cached positions."""
     return length if window is None else min(length, window + 1)

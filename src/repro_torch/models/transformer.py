@@ -45,9 +45,11 @@ from repro_torch.config import ModelConfig
 from repro_torch.distributed.autoshard import (
     block_weights, constrain_act, constrain_logits, data_placements, gather_fsdp,
     mesh_model_size, with_model)
+from repro_torch.kernels.head import CARD, HeadProductFn, head_route
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.module import current_remat, dtype_of, embed_init
+from repro_torch.obs.program import METRICS, TRACER
 
 
 # ---------------------------------------------------------------------------
@@ -207,10 +209,19 @@ def _embed_tokens(embed: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig,
 
 def _head(final_norm: L.RMSNorm, w: torch.Tensor, h: torch.Tensor,
           cfg: ModelConfig) -> torch.Tensor:
+    """f32 logits: products of the (compute-dtype) operands summed in f32.
+    Plain bf16 CUDA operands take the tensor cores (``kernels.head``); the
+    rest cast both operands to f32 (``head_route``)."""
     h = final_norm(h)
     w = gather_fsdp(w)
-    # f32 logits: products of the (compute-dtype) operands summed in f32.
-    logits = torch.matmul(h.to(torch.float32), w.to(h.dtype).to(torch.float32).t())
+    route, tr, mx = head_route(h, w), TRACER, METRICS
+    if tr.enabled:
+        mx.inc("head_products_total", route=route)
+    if route == "split_bf16":
+        logits = HeadProductFn.apply(h.reshape(-1, h.shape[-1]), w, CARD)
+        logits = logits.view(*h.shape[:-1], w.shape[0])
+    else:
+        logits = torch.matmul(h.to(torch.float32), w.to(h.dtype).to(torch.float32).t())
     logits = L._softcap(logits, cfg.logit_softcap)
     if cfg.padded_vocab != cfg.vocab_size:
         pad_mask = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size

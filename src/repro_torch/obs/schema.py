@@ -85,6 +85,8 @@ PROGRAM_METRIC_KEYS = frozenset({
     "wire_bytes_total",
     # copies between host and card, labelled memory=pinned|pageable
     "h2d_bytes_total", "d2h_bytes_total",
+    # the LM head's products, labelled route=split_bf16|f32 (kernels/head.py)
+    "head_products_total",
 })
 
 

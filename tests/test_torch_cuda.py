@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as tdk
 from repro_torch.kernels import flash_attention as tfk
+from repro_torch.kernels import head as thd
 from repro_torch.kernels import int8_transfer as tik
 from repro_torch.kernels.int8_cases import INT8_ADVERSARIAL, int8_adversarial
 from repro_torch.kernels import ops as tops
@@ -1404,3 +1405,141 @@ def test_cuda_program_spans_resolve_within_their_profiler_ranges(card, tmp_path)
             tol = 50.0 + 0.01 * (last - a)               # microseconds
             assert last - first - tol <= 1e3 * s.stream_ms <= last - a + tol, \
                 (name, s.stream_ms, first - a, last - a)
+
+
+# ---------------------------------------------------------------------------
+# The LM head's tensor-core route (kernels/head.py, csrc/head_split.cu)
+# ---------------------------------------------------------------------------
+def _split_input(rows, ld, first, cols, seed, scale=1e-4):
+    """Columns [first, first + cols) of an f32 (rows, ld) gradient, its first
+    row led by zeros of both signs, subnormals, a value under 2**-110, ties
+    of the first and second terms, and a large value."""
+    g = torch.from_numpy(_normal((rows, ld), seed, scale)).cuda()[:, first:first + cols]
+    special = torch.from_numpy(np.array(
+        [0x0, 0x80000000, 0x00000001, 0x807FFFFF, 0x08123456, 0x3F808000, 0x3F800080,
+         0xBF808080, 0x7E800000, 0x3F80FFFF], np.uint32).view(np.float32)).cuda()
+    k = min(cols, special.numel())
+    g[0, :k] = special[:k]
+    return g
+
+
+# rows, columns, row stride, first column, route: a chunk of nemo's gradient
+# (8,192 x 5,248 of 131,072) and its last chunk, mamba2's, the scalar route
+# on an odd width or stride and on a view off 16 bytes.
+SPLIT_CASES = [(8192, 5248, 131072, 5248, "vector"), (8192, 5120, 131072, 125952, "vector"),
+               (8192, 5120, 50688, 0, "vector"), (37, 200, 203, 1, "scalar"),
+               (5, 97, 97, 0, "scalar"), (64, 512, 516, 1, "scalar"), (1, 8, 8, 0, "vector")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols,ld,first,route", SPLIT_CASES)
+def test_cuda_split3_bf16_is_bit_equal_to_the_plain_split(card, rows, cols, ld, first, route):
+    g = _split_input(rows, ld, first, cols, rows + cols)
+    before = dict(thd.split_routes)
+    n0 = thd.split_launch_count()
+    got = thd.split3_bf16_cuda(g)
+    assert thd.split_launch_count() == n0 + 1
+    assert thd.split_routes[route] == before[route] + 1
+    want = tref.split3_bf16(g)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert torch.equal(thd.split3_bf16_cuda(g).view(torch.int16), got.view(torch.int16))
+
+
+def _rel64(a, b) -> float:
+    return float((a.double() - b).norm() / b.norm())
+
+
+# M rows (a microbatch of 2 x 4,096), d_model, padded vocabulary.
+HEAD_SHAPES = {"mistral-nemo-12b": (8192, 5120, 131072), "mamba2-1.3b": (8192, 2048, 50688)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(HEAD_SHAPES))
+def test_cuda_head_route_holds_to_the_f32_path(card, arch):
+    """At the train cells' head shapes, bf16 h and W, an f32 gradient of the
+    logits: the route's f32 sums (logits, dH, dW before their casts) within
+    ``F32_SUM_TOL`` (3e-5) relative L2 of the f64 sums of the exact products.
+    Both paths sum the same exact products in f32; the tensor cores
+    accumulate less finely than the CUDA cores' f32 product (about 6e-6 and
+    9e-6 against 4e-7 to 4e-6 on an H100), still a hundredth of one bf16
+    rounding. The bf16 gradients autograd hands on are the f32 path's but
+    for rounding: 1e-3 relative L2, and under a thousandth of the elements
+    more than one bf16 step apart (2**-20 of the largest element allowed
+    besides, where an element nearly cancels). Times: forward and backward
+    within 3x the bound of their 14 M D V operations at the bf16 peak, the
+    split of a chunk within 2x its bytes' bound."""
+    m, d, v = HEAD_SHAPES[arch]
+    gen = torch.Generator(device=card).manual_seed(7)
+    h = torch.randn(m, d, device=card, generator=gen).to(torch.bfloat16)
+    w = (torch.randn(v, d, device=card, generator=gen) * d ** -0.5).to(torch.bfloat16)
+    g = torch.randn(m, v, device=card, generator=gen) * (1.0 / (m * v ** 0.5))
+    exact = (h.double() @ w.double().t(), g.double() @ w.double(), g.double().t() @ h.double())
+    logits = thd.CARD.mm(h, w.t())
+    dh, dw = thd.head_grads(g, h, w, thd.CARD, dw_dtype=torch.float32)
+    h32, w32 = h.float(), w.float()
+    f32 = (h32 @ w32.t(), g @ w32, g.t() @ h32)
+    errs = {name: (_rel64(got, want), _rel64(base, want))
+            for name, got, base, want in zip(("logits", "dH", "dW"), (logits, dh, dw), f32, exact)}
+    print(f"{arch}: relative L2 to the f64 sums (route, f32 path) {errs}")
+    assert all(e[0] <= thd.F32_SUM_TOL for e in errs.values()), errs
+    del exact, f32, dh, dw
+    hh, ww = h.clone().requires_grad_(), w.clone().requires_grad_()
+    route = torch.autograd.grad(thd.HeadProductFn.apply(hh, ww, thd.CARD), (hh, ww), g)
+    plain = torch.autograd.grad(hh.float() @ ww.float().t(), (hh, ww), g)
+    for name, a, b in zip(("dH", "dW"), route, plain):
+        assert a.dtype == b.dtype == torch.bfloat16
+        a, b = a.float(), b.float()
+        step = torch.maximum(a.abs(), b.abs()) * 2.0 ** -7 + b.abs().max() * 2.0 ** -20
+        far = (a - b).abs() / step
+        print(f"{arch} {name} in bf16: relative L2 {_rel64(a, b.double()):.3e}, worst element "
+              f"{far.max().item():.3g} steps, {(far > 1).float().mean().item():.3g} beyond one")
+        assert (far > 1).float().mean().item() < 1e-3 and _rel64(a, b.double()) < 1e-3
+    del route, plain
+
+    def fwd_bwd():
+        out = thd.HeadProductFn.apply(hh, ww, thd.CARD)
+        torch.autograd.grad(out, (hh, ww), g)
+    ms = _event_ms(fwd_bwd, 3)
+    bound_ms = 14 * m * d * v / 989e12 * 1e3
+    cols = thd.chunk_cols(m, v)
+    split_ms = _event_ms(lambda: thd.split3_bf16_cuda(g[:, :cols]), 20)
+    split_bound = m * cols * 10 / 3.35e12 * 1e3
+    print(f"{arch} head forward and backward {ms:.3f} ms, bound {bound_ms:.3f} ms; split of a "
+          f"chunk ({m} x {cols}) {split_ms:.4f} ms, bound {split_bound:.4f} ms")
+    assert ms <= 3 * bound_ms and split_ms <= 2 * split_bound
+
+
+def _event_ms(fn, iters: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+@pytest.mark.cuda
+def test_cuda_head_counts_its_route(card):
+    """``_head`` on the card: bf16 operands take split_bf16, f32 ones the f32
+    path, each call counted once while the tracer is on; the split's
+    launches stay out of ops.launch_counts()."""
+    from repro_torch.models import transformer as ttr
+    from repro_torch.obs import program as P
+    cfg = get_smoke_config("mistral-nemo-12b")
+    outs = {}
+    with P.tracing():
+        for dt in (torch.bfloat16, torch.float32):
+            norm = tl.RMSNorm(64, 1e-5, dtype=dt, device=card)
+            w = torch.randn(cfg.padded_vocab, 64, device=card).to(dt).requires_grad_()
+            h = torch.randn(2, 8, 64, device=card).to(dt)
+            tops.reset_launch_counts()
+            n0 = thd.split_launch_count()
+            ttr._head(norm, w, h, cfg).sum().backward()
+            outs[dt] = thd.split_launch_count() - n0
+            assert set(tops.launch_counts().values()) == {0}
+        assert P.METRICS.snapshot()["counters"] == {"head_products_total{route=f32}": 1.0,
+                                                    "head_products_total{route=split_bf16}": 1.0}
+    assert outs == {torch.bfloat16: 1, torch.float32: 0}

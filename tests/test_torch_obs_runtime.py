@@ -80,8 +80,8 @@ def test_traced_hapi_step_gives_the_span_tree_under_one_step_id():
                                     "bytes": 2 * BATCH * SEQ * 8}
     assert counts["train.tune"]["rows"] == counts["extract.prefix"]["rows"] == 2
     assert P.METRICS.snapshot()["counters"] == {
-        "chunks_total": 2.0, "microbatches_total": 2.0, "steps_total": 1.0,
-        "wire_bytes_total": float(plan.decision.wire_bytes_per_iter)}
+        "chunks_total": 2.0, "head_products_total{route=f32}": 2.0, "microbatches_total": 2.0,
+        "steps_total": 1.0, "wire_bytes_total": float(plan.decision.wire_bytes_per_iter)}
     assert not P.TRACER.enabled
 
 
