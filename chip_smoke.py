@@ -51,8 +51,9 @@ width:
   three scenarios on the card (the smoke configs: the loss falls, a crash
   resumes, the int8 boundary trains) and trains mamba2, moonshot, jamba
   (its hybrid backward end to end), whisper and llava there; then the
-  train paths of ``TRAIN_PATHS``: mistral-nemo-12b and moonshot-v1-16b-a3b
-  at full width cut to 8 blocks (split 6), mamba2-1.3b (48 layers, split
+  train paths of ``TRAIN_PATHS``: mistral-nemo-12b, moonshot-v1-16b-a3b and
+  moonlight-16b-a3b (latent attention on the flash route at Q.K 192 / V 128,
+  the dropless MoE) at full width cut to 8 blocks (split 6), mamba2-1.3b (48 layers, split
   36), whisper-small (8 x 1,500 frames, split 1) and llava-next-mistral-7b
   (split 24) whole, each 4 fused-path steps on one repeated batch, the loss
   falling, and one coarse-path step, with the planner's wire bytes a step,
@@ -142,6 +143,17 @@ width:
   step, a peak within 0.8-1.25 of the card's and a roofline term the step
   does not beat; and the JAX package's slow-test cell, whisper-small
   decode_32k at 256 fake ranks, runs ``[ok]`` in a subprocess.
+
+* Latent attention and the dropless MoE (Moonlight-16B-A3B, the ``mla``
+  phase; ``python3 chip_smoke.py --mla`` runs it alone): the flash forward
+  and backward at Q.K head dim 192 and V head dim 128 against the plain
+  versions (V a strided view, as the model passes it), two backward calls
+  bit-equal, each timed at the fine-tune cell's shape (2 x 4,096, 16 heads)
+  beside its bound and SDPA on rows of their own (``flash_attention_mla``,
+  ``flash_attention_bwd_mla``, whose launches are the Moonlight train
+  path's); the MoE at full width (2 x 512 tokens), two
+  calls bit-equal forward and backward, its tokens' experts and outputs held
+  to the plain f32 reference where the experts agree.
 
 Weights are random, from seeded ``torch.Generator``s. Exits non-zero on any
 failure, and without a GPU. It prints each phase's wall time. Its last lines
@@ -333,6 +345,7 @@ PLAIN_RUN = "cuda, plain backward"
 # are its 576 patches and SERVE_PROMPT tokens; the refill writes the text.
 WHISPER_ARCH = "whisper-small"
 LLAVA_ARCH = "llava-next-mistral-7b"
+MOONLIGHT_ARCH = "moonlight-16b-a3b"
 WHISPER_FRAMES = 1500       # whisper's 30 s window
 SERVE_PROMPTS = {WHISPER_ARCH: WHISPER_FRAMES}
 SERVE_LAUNCHES = {
@@ -398,6 +411,7 @@ TRAIN_PATHS = {
     WHISPER_ARCH: TrainPath(None, 1, 8, WHISPER_FRAMES, 9_216_000 + 288_000),  # (8, 1500, 768)
     LLAVA_ARCH: TrainPath(None, 24, 4, 4096, 67_108_864 + 2_097_152),   # (4, 4096, 4096)
     MOE_ARCH: TrainPath(8, 6, 4, 4096, 33_554_432 + 1_048_576),         # (4, 4096, 2048)
+    MOONLIGHT_ARCH: TrainPath(8, 6, 4, 4096, 33_554_432 + 1_048_576),   # (4, 4096, 2048)
 }
 TRAIN_FUSED_STEPS = 4
 TRAIN_LR = 1e-4
@@ -421,6 +435,9 @@ TRAIN_LAUNCHES = {
                "coarse": {"ssd_scan": 168, "ssd_scan_bwd": 48, "quantize_int8": 2,
                           "dequantize_int8": 4}},
 }
+# Moonlight cut to 8 blocks at split 6 launches as mistral does, its flash
+# calls at Q.K head dim 192 and V head dim 128.
+TRAIN_LAUNCHES[MOONLIGHT_ARCH] = TRAIN_LAUNCHES[ARCH]
 
 
 def layer_kernels(cfg, seq: int, split: int) -> tuple:
@@ -431,8 +448,11 @@ def layer_kernels(cfg, seq: int, split: int) -> tuple:
     blocks; its suffix, the rest of the encoder (non-causal over the frames)
     and every decoder block (causal over ``dec_seq`` tokens; the
     cross-attention is no kernel)."""
+    hd, hdv = cfg.qk_head_dim, (cfg.v_head_dim if cfg.is_mla else cfg.qk_head_dim)
+
     def attn(s, causal):
-        return "flash_attention", (s, cfg.n_heads, cfg.n_kv_heads, cfg.hdim, causal)
+        return "flash_attention", (s, cfg.n_heads, cfg.n_kv_heads,
+                                   hd if hd == hdv else (hd, hdv), causal)
 
     if cfg.family == "encdec":
         enc, dec = attn(seq, False), attn(cfg.dec_seq, True)
@@ -3267,6 +3287,140 @@ def _sharded(smi: str, start_dry, dry: dict) -> dict:
     return launched
 
 
+# ---------------------------------------------------------------------------
+# Moonlight's latent attention and dropless MoE at full width
+# ---------------------------------------------------------------------------
+# (B, S, H, Q.K head dim, V head dim): the cell's flash launches, a microbatch
+# of 2 x 4,096 at Moonlight's 16 heads.
+MLA_SHAPE = (2, 4096, 16, 192, 128)
+MLA_CASES = [
+    # b, s, h, hkv, causal: the cell's shape, S off every tile, GQA, non-causal
+    (2, 4096, 16, 16, True),
+    (1, 1000, 4, 4, True),
+    (1, 129, 4, 2, True),
+    (2, 77, 2, 2, False),
+]
+
+
+def check_mla() -> dict:
+    """The flash forward and backward at latent attention's Q.K head dim 192
+    and V head dim 128 (bf16, V a strided view of a fused [k_nope | v]
+    tensor as the model passes it) against the plain versions, two backward
+    calls bit-equal, then at the cell's shape each timed beside its bound and
+    SDPA; and Moonlight's dropless MoE at full width: two calls (forward and
+    backward) bit-equal, the grouped products' path, and the share of
+    tokens whose experts agree with the plain f32 reference, those tokens'
+    outputs held to it."""
+    from repro_torch.models import plain_moonlight
+    rows = {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for b, s, h, hkv, causal in MLA_CASES:
+        dqk, dv = MLA_SHAPE[3:]
+        q = randn((b, s, h, dqk), torch.bfloat16, seed=61)
+        k = randn((b, s, hkv, dqk), torch.bfloat16, seed=62)
+        kv = randn((b, s, hkv, 128 + dv), torch.bfloat16, seed=63)
+        v = kv[..., 128:]
+        do = randn((b, s, h, dv), torch.bfloat16, seed=64)
+        before = flash.fwd_routes["wgmma"]
+        out, lse = flash_attention_cuda(q, k, v, causal=causal, lse=True)
+        check(flash.fwd_routes["wgmma"] == before + 1, "flash (192, 128): not the wgmma route")
+        rep = h // hkv
+        kr, vr = ops.repeat_kv(k, rep), ops.repeat_kv(v, rep)
+        exp, exp_lse = ref.flash_attention_lse(q, kr, vr, causal=causal)
+        rel = rel_err(out, exp)
+        lse_err = float((lse - exp_lse).abs().max())
+        check(rel <= ATTN_REL_TOL and lse_err <= BF16_TOL,
+              f"flash (192, 128) B={b} S={s}: relative L2 {rel}, lse {lse_err}")
+        grads = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
+        again = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
+        equal = all(torch.equal(x, y) for x, y in zip(grads, again))
+        check(equal, f"flash_attention_bwd (192, 128): two calls differ (B={b} S={s})")
+        want = ref.flash_attention_bwd(q, k, v.contiguous(), do, causal=causal)
+        rels = [rel_err(g, w) for g, w in zip(grads, want)]
+        log(f"flash (192, 128) B={b} S={s} H={h} Hkv={hkv} causal={causal} bf16: forward "
+            f"route {fwd_route(dqk, torch.bfloat16, dv)[0]}, relative L2 {rel:.3g}, lse max abs "
+            f"err {lse_err:.3g}; backward route {bwd_tile_config(dqk, torch.bfloat16, dv)[0]}, "
+            f"relative L2 dq {rels[0]:.3g} dk {rels[1]:.3g} dv {rels[2]:.3g} (tol "
+            f"{ATTN_REL_TOL:g}); two calls bit-equal {equal}")
+        check(max(rels) <= ATTN_REL_TOL, f"flash_attention_bwd (192, 128): relative L2 {rels}")
+        del again, want, exp, exp_lse, kr, vr
+        free()
+        if (b, s, h) == MLA_SHAPE[:3]:
+            vc = v.contiguous()
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, vc))
+            dot = do.transpose(1, 2)
+            fb, fby = bound(*work.flash_work(b, s, h, hkv, dqk, True, None, 2, dv),
+                            HW.peak_flops_bf16)
+            bb, bby = bound(*work.flash_bwd_work(b, s, h, hkv, dqk, True, None, 2, dv),
+                            HW.peak_flops_bf16)
+            lib_out = sdpa(qt, kt, vt, is_causal=True)
+            rows["flash_attention_mla"] = dict(
+                max_abs_err=float((out.float() - ref.flash_attention(
+                    q, k, vc, causal=True).float()).abs().max()),
+                ms=device_ms(lambda: flash_attention_cuda(q, k, v, causal=True), 10),
+                plain_ms=time_ms(lambda: ref.flash_attention(q, k, vc, causal=True), 2, 1),
+                bound_ms=fb, bound_by=fby,
+                library_ms=sum(profiled_ms(lambda: sdpa(qt, kt, vt, is_causal=True)).values()))
+            rows["flash_attention_bwd_mla"] = dict(
+                max_abs_err=max(float((g.float() - w.float()).abs().max()) for g, w in zip(
+                    grads, ref.flash_attention_bwd(q, k, vc, do, causal=True))),
+                ms=device_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                                              causal=True), 10),
+                plain_ms=time_ms(lambda: ref.flash_attention_bwd(q, k, vc, do, causal=True),
+                                 1, 1),
+                bound_ms=bb, bound_by=bby,
+                library_ms=sum(profiled_ms(lambda: torch.autograd.grad(
+                    lib_out, (qt, kt, vt), dot, retain_graph=True)).values()))
+            parts = kernel_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                                               causal=True))
+            for name, r in (("flash_attention_mla", rows["flash_attention_mla"]),
+                            ("flash_attention_bwd_mla", rows["flash_attention_bwd_mla"])):
+                log(f"{name} ({b} x {s}, {h}/{hkv} heads, Q.K {dqk}, V {dv}, causal, bf16): "
+                    f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+                    f"ms ({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f}% of it), "
+                    f"scaled_dot_product_attention {r['library_ms']:.4f} ms on the device")
+            log("flash_attention_bwd_mla by kernel: "
+                + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()))
+            del qt, kt, vt, dot, lib_out, vc
+        del q, k, kv, v, do, out, lse, grads
+        free()
+
+    # The dropless MoE of one block at full width, 2 x 512 tokens, bf16.
+    cfg = get_config(MOONLIGHT_ARCH)
+    moe = layers.DeepSeekMoE(cfg, device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(7))
+    with torch.no_grad():
+        moe.e_score_correction_bias.copy_(0.1 * torch.sin(
+            2.0 * torch.arange(cfg.n_experts, device="cuda", dtype=torch.float32) + 0.5))
+    x = randn((2, 512, cfg.d_model), torch.bfloat16, seed=65).requires_grad_()
+    outs = []
+    for _ in range(2):
+        y = layers.deepseek_moe_apply(moe, x, cfg)
+        g = torch.autograd.grad(y.float().square().sum(), [x, *moe.parameters()])
+        outs.append((y.detach(), g))
+    equal = torch.equal(outs[0][0], outs[1][0]) and all(
+        torch.equal(a, c) for a, c in zip(outs[0][1], outs[1][1]))
+    check(equal, "Moonlight's MoE: two calls on the card differ")
+    w = {f"moe.{k}": t.detach().float() for k, t in moe.state_dict().items()}
+    xt = x.detach().float().reshape(-1, cfg.d_model)
+    with torch.no_grad():
+        r = layers.deepseek_route(moe, x.detach().reshape(-1, cfg.d_model), cfg)
+        top_ref, _ = plain_moonlight.route(w, "", xt, cfg)
+        same = (r.top_e.sort(-1).values == top_ref.sort(-1).values).all(-1)
+        want = plain_moonlight.moe(w, "", x.detach().float(), cfg).reshape(-1, cfg.d_model)
+    share = float(same.float().mean())
+    rel = rel_err(outs[0][0].reshape(-1, cfg.d_model)[same], want[same])
+    log(f"Moonlight's MoE at full width (2 x 512 tokens, 64 experts, 6 a token, 2 shared, "
+        f"bf16): grouped products on torch._grouped_mm; two calls (forward and backward) bit-equal {equal}; experts agree with the plain "
+        f"f32 reference for {share:.4f} of tokens, their outputs at relative L2 {rel:.3g}; "
+        f"rows a expert {r.counts.min().item()}-{r.counts.max().item()}")
+    check(share >= 0.9 and rel <= ATTN_REL_TOL,
+          f"Moonlight's MoE: routing agreement {share}, relative L2 {rel}")
+    del moe, x, outs, w, xt, want
+    free()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -3276,6 +3430,13 @@ def main() -> int:
     smi = environment()
     log(f"build: {_build.build():.1f} s ({', '.join(_build.SOURCES)})")
     phases = {}
+    if sys.argv[1:2] == ["--mla"]:
+        # Only the latent attention route and the dropless MoE.
+        mla = check_mla()
+        log(smi)
+        log(json.dumps({"kernels": [{"name": k, **v} for k, v in mla.items()]}))
+        log(json.dumps({"ok": True, "phase": "mla"}))
+        return 0
 
     def phase(name, fn):
         t0 = time.perf_counter()
@@ -3286,7 +3447,7 @@ def main() -> int:
     kernels = {}
     for name, fn in (("flash", check_flash), ("flash_bwd", check_flash_bwd), ("int8", check_int8),
                      ("decode", check_decode), ("ssd", check_ssd), ("ssd_bwd", check_ssd_bwd),
-                     ("head", check_head)):
+                     ("head", check_head), ("mla", check_mla)):
         kernels.update(phase(name, fn))
     phase("full_width", check_full_width)
     for arch, seq in FULL_WIDTH_TRAINING:
@@ -3330,6 +3491,15 @@ def main() -> int:
         check(max(tally, key=tally.get) == WHISPER_ROW_BATCH,
               f"whisper's encoder launches by batch {tally}: the rows are timed at "
               f"{WHISPER_ROW_BATCH} clips")
+    # Moonlight's train path launches flash only at Q.K 192 / V 128: its
+    # forwards and backwards by shape, held to its launches by kernel.
+    mla_run = trained[MOONLIGHT_ARCH]
+    mla_launches = tuple(sum(n for key, n in shapes.items() if key[4] == MLA_SHAPE[3:])
+                         for shapes in (mla_run.fwd_shapes, mla_run.bwd_shapes))
+    check(mla_launches == (mla_run.launches["flash_attention"],
+                           mla_run.launches["flash_attention_bwd"]),
+          f"moonlight's flash launches at (192, 128) {mla_launches}, by kernel "
+          f"{mla_run.launches}")
     # Rows of their own, timed at another path's shape: that path's launches
     # go there and are taken out of the kernel's main row.
     own_rows = [("ssd_scan", "ssd_scan_jamba", served_by_arch["jamba-v0.1-52b"]["ssd_scan"],
@@ -3360,7 +3530,13 @@ def main() -> int:
                  "on one card; its smoke config trains in train_defaults (f32, FMA route)"),
                 ("decode_attention", "decode_attention_whisper", whisper_cross,
                  "whisper-small's cross-attention decode (4 x 1,500 frames, 12/12 heads, hd 64, "
-                 "bf16)")]
+                 "bf16)"),
+                ("flash_attention", "flash_attention_mla", mla_launches[0],
+                 "moonlight-16b-a3b's latent attention in training (2 x 4,096, 16/16 heads, "
+                 "Q.K 192, V 128, causal, bf16)"),
+                ("flash_attention_bwd", "flash_attention_bwd_mla", mla_launches[1],
+                 "moonlight-16b-a3b's latent attention in training (2 x 4,096, 16/16 heads, "
+                 "Q.K 192, V 128, causal, bf16)")]
     main_launches = dict(launches)
     for kernel, _, n, _ in own_rows:
         main_launches[kernel] -= n

@@ -76,6 +76,26 @@ class ModelConfig:
     n_experts: int = 0
     top_k: int = 0
     capacity_factor: float = 1.25
+    # DeepSeek-V3's MoE (Moonlight): the router ("softmax": top-k of a
+    # softmax; "sigmoid_bias": top-k of sigmoid scores plus a frozen f32
+    # correction bias, the chosen scores renormalised and scaled by
+    # ``routed_scaling_factor``, over experts that drop no token), shared experts
+    # of ``d_ff`` each beside the routed ones, and ``first_k_dense`` leading
+    # blocks whose FFN is a SwiGLU MLP of width ``d_ff_dense``.
+    router: str = "softmax"
+    routed_scaling_factor: float = 1.0
+    n_shared_experts: int = 0
+    first_k_dense: int = 0
+    d_ff_dense: int = 0
+
+    # --- multi-head latent attention (DeepSeek-V2/V3, Moonlight) -------------
+    # On where kv_lora_rank > 0: K and V come out of a normed latent of that
+    # width, each head's Q.K dim is qk_nope_head_dim + qk_rope_head_dim (the
+    # rope part of K one head shared by all), V's is v_head_dim.
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
 
     # --- state-space (mamba2 / jamba) ----------------------------------------
     ssm_state: int = 0
@@ -111,6 +131,21 @@ class ModelConfig:
     def __post_init__(self):
         if self.family not in FAMILIES:
             raise ValueError(f"unknown family {self.family!r}")
+        if self.router not in ("softmax", "sigmoid_bias"):
+            raise ValueError(f"unknown router {self.router!r}")
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def qk_head_dim(self) -> int:
+        """Each head's Q.K dim: ``hdim``, or MLA's nope and rope parts."""
+        return self.qk_nope_head_dim + self.qk_rope_head_dim if self.is_mla else self.hdim
+
+    def dense_block(self, i: int) -> bool:
+        """Block ``i`` of a MoE family has a SwiGLU MLP, not a MoE."""
+        return i < self.first_k_dense
 
     @property
     def hdim(self) -> int:
@@ -157,6 +192,11 @@ class ModelConfig:
 
     # --- analytic parameter counts -------------------------------------------
     def _attn_params(self) -> int:
+        if self.is_mla:
+            h, r, dr = self.n_heads, self.kv_lora_rank, self.qk_rope_head_dim
+            q = self.d_model * h * self.qk_head_dim
+            kv = self.d_model * (r + dr) + r + r * h * (self.qk_nope_head_dim + self.v_head_dim)
+            return q + kv + h * self.v_head_dim * self.d_model
         hd = self.hdim
         q = self.d_model * self.n_heads * hd
         kv = 2 * self.d_model * self.n_kv_heads * hd
@@ -164,15 +204,17 @@ class ModelConfig:
         b = (self.n_heads + 2 * self.n_kv_heads) * hd if self.qkv_bias else 0
         return q + kv + o + b
 
-    def _dense_ffn_params(self) -> int:
+    def _dense_ffn_params(self, width: int = 0) -> int:
         # gated (SwiGLU-style): up, gate, down
-        return 3 * self.d_model * self.d_ff
+        return 3 * self.d_model * (width or self.d_ff)
 
     def _moe_ffn_params(self, active: bool) -> int:
         per_expert = 3 * self.d_model * self.d_ff
         router = self.d_model * self.n_experts
         n = self.top_k if active else self.n_experts
-        return n * per_expert + router
+        shared = self.n_shared_experts * per_expert
+        bias = self.n_experts if self.router == "sigmoid_bias" else 0
+        return n * per_expert + router + shared + bias
 
     def _ssm_params(self) -> int:
         di, ns, nh = self.d_inner, self.ssm_state, self.ssm_nheads
@@ -182,10 +224,13 @@ class ModelConfig:
         extra = nh * 3  # A_log, D, dt_bias
         return in_proj + conv + out + extra
 
-    def block_params(self, active_only: bool = False) -> int:
-        """Params of one block (all sublayers inside it)."""
+    def block_params(self, active_only: bool = False, index: Optional[int] = None) -> int:
+        """Params of one block (all sublayers inside it): block ``index`` where
+        the blocks differ (a MoE family's dense leading blocks), else any."""
         d = self.d_model
         norm = 2 * d  # two norms per sublayer (approx, pre-norm archs)
+        if self.family == "moe" and index is not None and self.dense_block(index):
+            return self._attn_params() + self._dense_ffn_params(self.d_ff_dense) + norm
         if self.local_global_period:
             # gemma2: one block == one (local, global) pair.
             per = self._attn_params() + self._dense_ffn_params() + norm
@@ -214,7 +259,7 @@ class ModelConfig:
     def param_count(self, active_only: bool = False) -> int:
         emb = self.padded_vocab * self.d_model
         head = emb if not self.tie_embeddings else 0
-        body = self.n_blocks * self.block_params(active_only)
+        body = sum(self.block_params(active_only, i) for i in range(self.n_blocks))
         if self.family == "encdec":
             dec = self.n_dec_layers * (
                 2 * self._attn_params() + self._dense_ffn_params() + 3 * self.d_model

@@ -1,8 +1,12 @@
-"""Architecture registry — the 10 assigned archs (+ paper vision models).
+"""Architecture registry — the 10 assigned archs (+ paper vision models),
+and the port's own architectures.
 
 ``get_config(arch_id)`` returns the exact published configuration;
 ``get_smoke_config(arch_id)`` returns a reduced same-family variant for
 CPU smoke tests (small width/depth/experts/vocab — structure preserved).
+``ARCH_IDS`` are the JAX package's ten, which the parity tests iterate;
+``PORT_ARCH_IDS`` the port's alone (no JAX counterpart): Moonlight's
+DeepSeek-V3 block.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from repro_torch.configs import (  # noqa: E402
     llava_next_mistral_7b,
     whisper_small,
     jamba_v0_1_52b,
+    moonlight_16b_a3b,
 )
 
 _MODULES = {
@@ -39,9 +44,15 @@ _MODULES = {
 
 ARCH_IDS: List[str] = list(_MODULES)
 
+_PORT_MODULES = {
+    "moonlight-16b-a3b": moonlight_16b_a3b,
+}
+
+PORT_ARCH_IDS: List[str] = list(_PORT_MODULES)
+
 
 def get_config(arch_id: str) -> ModelConfig:
-    return _MODULES[arch_id].config()
+    return {**_MODULES, **_PORT_MODULES}[arch_id].config()
 
 
 def all_configs() -> Dict[str, ModelConfig]:
@@ -62,7 +73,14 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
         param_dtype="float32",
         compute_dtype="float32",
     )
-    if cfg.family == "moe":
+    if cfg.is_mla:
+        # Moonlight: the dense block and two MoE blocks, latent attention at
+        # Q.K dim 24 (16 + 8) and V dim 16, 8 routed experts (2 a token)
+        # beside 2 shared ones.
+        kw.update(n_layers=3, n_kv_heads=4, head_dim=None, d_ff=32, d_ff_dense=128,
+                  n_experts=8, top_k=2, kv_lora_rank=32, qk_nope_head_dim=16,
+                  qk_rope_head_dim=8, v_head_dim=16)
+    elif cfg.family == "moe":
         kw.update(n_layers=2, n_experts=8, top_k=2, capacity_factor=8.0)
     elif cfg.family == "ssm":
         kw.update(n_layers=2, ssm_state=16, ssm_headdim=16, ssm_chunk=16)

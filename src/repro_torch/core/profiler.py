@@ -67,6 +67,17 @@ class LayerProfile:
 # ---------------------------------------------------------------------------
 # Analytic FLOPs for LM sublayers (per sample of seq length S)
 # ---------------------------------------------------------------------------
+def _mla_flops(cfg: ModelConfig, s: int) -> float:
+    """Latent attention: Q, the latent and K's rope head, K's nope part and V
+    out of the latent, the output projection; Q.K at the Q.K head dim and
+    P.V at V's."""
+    d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    dqk, dv = cfg.qk_head_dim, cfg.v_head_dim
+    proj = 2 * s * d * (h * dqk + r + cfg.qk_rope_head_dim) \
+        + 2 * s * r * h * (cfg.qk_nope_head_dim + dv) + 2 * s * h * dv * d
+    return proj + 2 * s * s * h * (dqk + dv)
+
+
 def _attn_flops(cfg: ModelConfig, s: int, window: Optional[int]) -> float:
     hd, hq, hkv, d = cfg.hdim, cfg.n_heads, cfg.n_kv_heads, cfg.d_model
     proj = 2 * s * d * (hq + 2 * hkv) * hd + 2 * s * hq * hd * d
@@ -75,12 +86,17 @@ def _attn_flops(cfg: ModelConfig, s: int, window: Optional[int]) -> float:
     return proj + scores
 
 
-def _mlp_flops(cfg: ModelConfig, s: int) -> float:
-    return 2 * s * 3 * cfg.d_model * cfg.d_ff
+def _mlp_flops(cfg: ModelConfig, s: int, d_ff: int = 0) -> float:
+    return 2 * s * 3 * cfg.d_model * (d_ff or cfg.d_ff)
 
 
 def _moe_flops(cfg: ModelConfig, s: int) -> float:
     router = 2 * s * cfg.d_model * cfg.n_experts
+    if cfg.router == "sigmoid_bias":
+        # DeepSeek-V3's experts drop no token: every token's top_k experts,
+        # no capacity slack, and the shared ones.
+        experts = cfg.top_k + cfg.n_shared_experts
+        return router + 2 * s * experts * 3 * cfg.d_model * cfg.d_ff
     expert = 2 * s * cfg.top_k * cfg.capacity_factor * 3 * cfg.d_model * cfg.d_ff
     return router + expert
 
@@ -99,20 +115,24 @@ def sublayer_flops(cfg: ModelConfig, sub: SubLayer, s: int) -> float:
         f = _attn_flops(cfg, s, None)
     elif sub.mixer == "attn_local":
         f = _attn_flops(cfg, s, cfg.sliding_window)
+    elif sub.mixer == "mla":
+        f = _mla_flops(cfg, s)
     else:
         f = _ssm_flops(cfg, s)
     if sub.ffn == "mlp":
-        f += _mlp_flops(cfg, s)
+        f += _mlp_flops(cfg, s, sub.d_ff)
     elif sub.ffn == "moe":
         f += _moe_flops(cfg, s)
     return f
 
 
-def block_flops(cfg: ModelConfig, s: int) -> float:
+def block_flops(cfg: ModelConfig, s: int, index: int = 0) -> float:
+    """FLOPs of block ``index`` a sample (the blocks differ only where a MoE
+    family's leading blocks are dense)."""
     if cfg.family == "encdec":
         # Encoder block: bidirectional self-attn + MLP over the frames.
         return sublayer_flops(cfg, SubLayer("attn", "mlp"), s)
-    return sum(sublayer_flops(cfg, sub, s) for sub in block_plan(cfg))
+    return sum(sublayer_flops(cfg, sub, s) for sub in block_plan(cfg, index))
 
 
 def encdec_decoder_flops(cfg: ModelConfig, s_enc: int) -> float:
@@ -149,8 +169,6 @@ def profile_lm(cfg: ModelConfig, seq_len: int, headroom: float = 0.08) -> LayerP
 
     boundary_act = s * d * act_dt          # (S, D) hidden state per sample
     n = cfg.n_blocks
-    bp = cfg.block_params() * par_dt
-    bf = block_flops(cfg, s)
 
     # Working set of the prefix per sample: input + output of the live block
     # plus attention/moe workspace (~4x hidden), constant in depth.
@@ -161,10 +179,14 @@ def profile_lm(cfg: ModelConfig, seq_len: int, headroom: float = 0.08) -> LayerP
     act_peak = [float(input_bytes)]
     prefix_pb = [0.0]
     emb_bytes = cfg.padded_vocab * d * par_dt
-    for i in range(1, n + 1):
-        cum_flops.append(float(i * bf))    # the embedding is a gather: 0 FLOPs
+    pb = emb_bytes
+    for i in range(n):
+        # Each block's own FLOPs and weights (a MoE family's dense leading
+        # blocks differ from the rest); the embedding is a gather: 0 FLOPs.
+        cum_flops.append(cum_flops[-1] + float(block_flops(cfg, s, i)))
+        pb += cfg.block_params(index=i) * par_dt
+        prefix_pb.append(pb)
         act_peak.append(float(work))
-        prefix_pb.append(emb_bytes + i * bp)
     if cfg.family == "encdec":
         cum_flops[-1] += encdec_decoder_flops(cfg, s) + 2 * cfg.dec_seq * d * cfg.padded_vocab
     else:

@@ -118,11 +118,20 @@
 //   barriers measured slower); a third ring stage moved nothing.
 // Calls are deterministic (no atomics).
 //
-// C interface: flash_attention_fwd returns cudaGetLastError() after its
+// Latent attention (DeepSeek-V3's MLA, Moonlight's) has a Q.K head dim of 192
+// and a V head dim of 128: the bf16 kernel takes the two dims as template
+// arguments, Q and K tiles of three 64-wide boxes and V tiles of two, 128 keys
+// a tile (214,088 bytes of shared memory with the ring of two stages); its
+// registers are hd 128's (the score tile and a 64 x 128 output a consumer).
+// Every other route has V's head dim equal to Q's, and compiles as before.
+//
+// C interface: flash_attention_fwd_dv returns cudaGetLastError() after its
 // launch, or an error code without launching, and writes the route it
 // launched to *route; lse and route may be null. dtype codes: 0 = float32,
-// 1 = bfloat16. head_dim 64, 128 or 256 in bf16; also 16 and 32 in f32.
-// flash_attention_fwd_route gives the route of (dtype, head dim),
+// 1 = bfloat16. head_dim 64, 128 or 256 in bf16; also 16 and 32 in f32; V's
+// head dim equal to it, or (192, 128) in bf16. flash_attention_fwd is the same
+// with V's head dim equal to q's. flash_attention_fwd_route gives the route of
+// (dtype, head dim), flash_attention_tile_dv the bf16 tiles of (hd, hdv),
 // flash_attention_tf32_launch the split-TF32 route's grid.
 
 #include <cuda.h>  // CUtensorMap; the encoder itself comes from the runtime
@@ -200,16 +209,19 @@ constexpr int kConsumerRegs = 240;
 // TILE_CONFIG mirrors it), and where each buffer sits in shared memory. A
 // tile of R rows is stored as hd / 64 boxes of R rows x 128 bytes, each
 // 128-byte swizzled by TMA; every buffer starts on a 1024-byte boundary, the
-// swizzle's period.
-template <int HD>
+// swizzle's period. HD is the Q.K head dim, HDV V's (and the output's): the
+// same but for latent attention's (192, 128), whose Q and K rows are three
+// boxes and V's two.
+template <int HD, int HDV = HD>
 struct Layout {
   static constexpr int kBN = HD == 256 ? 64 : 128;
   static constexpr int kQBytes = kBM * HD * 2;
-  static constexpr int kTileBytes = kBN * HD * 2;  // one K or one V tile
+  static constexpr int kTileBytes = kBN * HD * 2;    // one K tile
+  static constexpr int kVTileBytes = kBN * HDV * 2;  // one V tile
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kQBytes;
   static constexpr int kV = kK + kStages * kTileBytes;
-  static constexpr int kBar = kV + kStages * kTileBytes;  // 3 + 3 * kStages mbarriers
+  static constexpr int kBar = kV + kStages * kVTileBytes;  // 3 + 3 * kStages mbarriers
   static constexpr int kBytes = kBar + 8 * (3 + 3 * kStages) + 1024;  // + alignment slack
 };
 
@@ -415,12 +427,12 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
 }
 
 // CAP: the soft-cap is on; a template argument, so that the common path
-// carries no tanh.
-template <int HD, bool CAP>
+// carries no tanh. HD: the Q.K head dim; HDV: V's and the output's.
+template <int HD, int HDV, bool CAP>
 __global__ void __launch_bounds__(kWsThreads, 1)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const Params p) {
-  using L = Layout<HD>;
+  using L = Layout<HD, HDV>;
   constexpr int kBN = L::kBN;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -466,15 +478,15 @@ __global__ void __launch_bounds__(kWsThreads, 1)
         const int s = i % kStages;
         if (i >= kStages) mbar_wait(empty(s), ((i / kStages) - 1) & 1);
         const int kv_start = (t_lo + i) * kBN;
-        const uint32_t off = s * L::kTileBytes;
+        const uint32_t off = s * L::kTileBytes, voff = s * L::kVTileBytes;
         mbar_expect_tx(k_full(s), L::kTileBytes);
 #pragma unroll
         for (int c = 0; c < HD / kBox; ++c)
           tma_load(base + L::kK + off + c * kBN * 128, &tk, k_full(s), c * kBox, hk, kv_start, b);
-        mbar_expect_tx(v_full(s), L::kTileBytes);
+        mbar_expect_tx(v_full(s), L::kVTileBytes);
 #pragma unroll
-        for (int c = 0; c < HD / kBox; ++c)
-          tma_load(base + L::kV + off + c * kBN * 128, &tv, v_full(s), c * kBox, hk, kv_start, b);
+        for (int c = 0; c < HDV / kBox; ++c)
+          tma_load(base + L::kV + voff + c * kBN * 128, &tv, v_full(s), c * kBox, hk, kv_start, b);
       }
     }
     return;
@@ -504,9 +516,9 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   if (first >= p.S) w_hi = w_lo;
   const float scale_log2 = p.scale * kLog2e;
 
-  float o[HD / 2];
+  float o[HDV / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < HDV / 2; ++i) o[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
   mbar_wait(q_full, 0);
@@ -514,7 +526,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     const int s = i % kStages;
     const uint32_t phase = (i / kStages) & 1;
     const int t = t_lo + i, kv_start = t * kBN;
-    const uint32_t off = s * L::kTileBytes;
+    const uint32_t off = s * L::kTileBytes, voff = s * L::kVTileBytes;
     // Every consumer waits on every phase, also of a tile it skips, so that
     // no wait can run a phase ahead of its barrier.
     mbar_wait(k_full(s), phase);
@@ -575,7 +587,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       m0 = mn0;
       m1 = mn1;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < HDV / 8; ++j) {
         o[4 * j] *= al0;
         o[4 * j + 1] *= al0;
         o[4 * j + 2] *= al1;
@@ -594,7 +606,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
                                pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]),
                                pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]),
                                pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7])};
-        const uint32_t va = base + L::kV + off + kk * 16 * 128;
+        const uint32_t va = base + L::kV + voff + kk * 16 * 128;
         wgmma_rs(o, a, sw128_desc(va, kBN * 128, 1024));
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -619,10 +631,10 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     if (qpos0 < p.S) lg[qpos0] = m0 + log2f(l0);
     if (qpos1 < p.S) lg[qpos1] = m1 + log2f(l1);
   }
-  const long long o_ss = static_cast<long long>(p.H) * HD;
-  bf16* og = static_cast<bf16*>(p.o) + (static_cast<long long>(b) * p.S * p.H + h) * HD;
+  const long long o_ss = static_cast<long long>(p.H) * HDV;
+  bf16* og = static_cast<bf16*>(p.o) + (static_cast<long long>(b) * p.S * p.H + h) * HDV;
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
+  for (int j = 0; j < HDV / 8; ++j) {
     const int col = j * 8 + t4 * 2;
     if (qpos0 < p.S)
       *reinterpret_cast<__nv_bfloat162*>(og + qpos0 * o_ss + col) =
@@ -1252,10 +1264,10 @@ bool make_map(CUtensorMap* map, const void* ptr, int hd, int heads, int S, int B
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD, bool CAP>
+template <int HD, int HDV, bool CAP>
 int launch_bf16(const Params& p, cudaStream_t stream) {
-  using L = Layout<HD>;
-  auto kernel = flash_fwd_bf16<HD, CAP>;
+  using L = Layout<HD, HDV>;
+  auto kernel = flash_fwd_bf16<HD, HDV, CAP>;
   static bool ready = false;
   if (!ready) {
     // setmaxnreg moves registers between warpgroups of a block; the block must
@@ -1273,7 +1285,7 @@ int launch_bf16(const Params& p, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, p.q, HD, p.H, p.S, p.B, p.q_sb, p.q_ss, p.q_sh, kBM) ||
       !make_map(&tk, p.k, HD, p.Hkv, p.S, p.B, p.k_sb, p.k_ss, p.k_sh, L::kBN) ||
-      !make_map(&tv, p.v, HD, p.Hkv, p.S, p.B, p.v_sb, p.v_ss, p.v_sh, L::kBN))
+      !make_map(&tv, p.v, HDV, p.Hkv, p.S, p.B, p.v_sb, p.v_ss, p.v_sh, L::kBN))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((p.S + kBM - 1) / kBM, p.B * p.H);
   kernel<<<grid, kWsThreads, L::kBytes, stream>>>(tq, tk, tv, p);
@@ -1282,13 +1294,15 @@ int launch_bf16(const Params& p, cudaStream_t stream) {
 
 }  // namespace
 
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   float* lse, int dtype, int B, int S, int H, int Hkv, int hd,
-                                   long long q_sb, long long q_ss, long long q_sh,
-                                   long long k_sb, long long k_ss, long long k_sh,
-                                   long long v_sb, long long v_ss, long long v_sh,
-                                   int causal, int window, float softcap, float scale,
-                                   int* route, void* stream) {
+// hdv is V's head dim (and the output's): hd, or 128 beside a Q.K head dim
+// of 192 (latent attention), on the bf16 route.
+extern "C" int flash_attention_fwd_dv(const void* q, const void* k, const void* v, void* o,
+                                      float* lse, int dtype, int B, int S, int H, int Hkv,
+                                      int hd, int hdv, long long q_sb, long long q_ss,
+                                      long long q_sh, long long k_sb, long long k_ss,
+                                      long long k_sh, long long v_sb, long long v_ss,
+                                      long long v_sh, int causal, int window, float softcap,
+                                      float scale, int* route, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{q,    k,    v,    o,    lse,  B,    S,      H,      Hkv,     q_sb,  q_ss,
@@ -1300,13 +1314,19 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     if (route != nullptr) *route = code;
     return rc;
   };
+  if (dtype == 1 && hd == 192 && hdv == 128)
+    return took(2, cap ? launch_bf16<192, 128, true>(p, st) : launch_bf16<192, 128, false>(p, st));
+  if (hdv != hd) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1) {
     switch (hd) {
-      case 64: return took(2, cap ? launch_bf16<64, true>(p, st) : launch_bf16<64, false>(p, st));
+      case 64:
+        return took(2, cap ? launch_bf16<64, 64, true>(p, st) : launch_bf16<64, 64, false>(p, st));
       case 128:
-        return took(2, cap ? launch_bf16<128, true>(p, st) : launch_bf16<128, false>(p, st));
+        return took(2, cap ? launch_bf16<128, 128, true>(p, st)
+                           : launch_bf16<128, 128, false>(p, st));
       case 256:
-        return took(2, cap ? launch_bf16<256, true>(p, st) : launch_bf16<256, false>(p, st));
+        return took(2, cap ? launch_bf16<256, 256, true>(p, st)
+                           : launch_bf16<256, 256, false>(p, st));
     }
   } else if (dtype == 0) {
     switch (hd) {
@@ -1321,10 +1341,32 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The bf16 kernel's tile configuration for head dim hd: (BM, BN, stages,
-// dynamic shared bytes), for the host's checks; -1 for a head dim it does not
-// take.
-extern "C" int flash_attention_tile(int hd, int* bm, int* bn, int* stages, int* smem) {
+// The same with V's head dim equal to hd.
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                   float* lse, int dtype, int B, int S, int H, int Hkv, int hd,
+                                   long long q_sb, long long q_ss, long long q_sh,
+                                   long long k_sb, long long k_ss, long long k_sh,
+                                   long long v_sb, long long v_ss, long long v_sh,
+                                   int causal, int window, float softcap, float scale,
+                                   int* route, void* stream) {
+  return flash_attention_fwd_dv(q, k, v, o, lse, dtype, B, S, H, Hkv, hd, hd, q_sb, q_ss, q_sh,
+                                k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, window, softcap,
+                                scale, route, stream);
+}
+
+// The bf16 kernel's tile configuration at (Q.K head dim hd, V head dim hdv):
+// (BM, BN, stages, dynamic shared bytes), for the host's checks; -1 for a pair
+// it does not take.
+extern "C" int flash_attention_tile_dv(int hd, int hdv, int* bm, int* bn, int* stages,
+                                       int* smem) {
+  if (hd == 192 && hdv == 128) {
+    *bn = Layout<192, 128>::kBN;
+    *smem = Layout<192, 128>::kBytes;
+    *bm = kBM;
+    *stages = kStages;
+    return 0;
+  }
+  if (hdv != hd) return -1;
   switch (hd) {
     case 64: *bn = Layout<64>::kBN; *smem = Layout<64>::kBytes; break;
     case 128: *bn = Layout<128>::kBN; *smem = Layout<128>::kBytes; break;
@@ -1334,6 +1376,13 @@ extern "C" int flash_attention_tile(int hd, int* bm, int* bn, int* stages, int* 
   *bm = kBM;
   *stages = kStages;
   return 0;
+}
+
+// The bf16 kernel's tile configuration for head dim hd: (BM, BN, stages,
+// dynamic shared bytes), for the host's checks; -1 for a head dim it does not
+// take.
+extern "C" int flash_attention_tile(int hd, int* bm, int* bn, int* stages, int* smem) {
+  return flash_attention_tile_dv(hd, hd, bm, bn, stages, smem);
 }
 
 // The route of (dtype, head dim), chosen before any launch: 0 the FMA kernel

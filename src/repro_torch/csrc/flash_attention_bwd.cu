@@ -61,15 +61,23 @@
 //   double-buffered with cp.async; two warps share 16 keys of dK and dV, each
 //   with half of the columns (and both computing S^T and dP^T), so that the
 //   accumulators fit in registers.
+// - bf16 at latent attention's Q.K head dim 192 and V head dim 128: the same
+//   mma.sync kernels, Q, K, dq, dk at 192 and V, O, dO, dv at 128. Its tiles
+//   would fit the wgmma route's shared memory, but not its registers: a
+//   consumer warpgroup's 64 keys hold dK (96 values a thread) and dV (64)
+//   beside S^T and dP^T (32 each), 224 of the 240 registers setmaxnreg can
+//   give it, before any address or fragment.
 // - f32: a plain FMA path (tiles of 32, 128 threads), at head dims 16 to 256:
 //   the f32 smoke configs run at 16.
 // P and dS are rounded to bf16 for their products, as the forward rounds P.
 //
-// C interface: flash_attention_bwd returns cudaGetLastError() after its three
-// launches (the first error stops it), or an error code without launching.
-// dtype codes: 0 = float32, 1 = bfloat16. All tensors are packed: q, o, dO, dq
-// (B, S, H, hd); k, v, dk, dv (B, S, Hkv, hd); lse and the D scratch (B, H, S)
-// f32; the bf16 wgmma route also needs q, k, v and dO 16-byte aligned.
+// C interface: flash_attention_bwd_dv returns cudaGetLastError() after its
+// three launches (the first error stops it), or an error code without
+// launching; flash_attention_bwd is the same with V's head dim equal to hd.
+// dtype codes: 0 = float32, 1 = bfloat16. All tensors are packed: q, dq (B, S,
+// H, hd), o, dO (B, S, H, hdv); k, dk (B, S, Hkv, hd), v, dv (B, S, Hkv, hdv);
+// lse and the D scratch (B, H, S) f32; the bf16 wgmma route also needs q, k, v
+// and dO 16-byte aligned.
 
 #include <cuda.h>  // CUtensorMap; the encoder itself comes from the runtime
 #include <cuda_bf16.h>
@@ -797,7 +805,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at head dim 256: mma.sync
+// bf16 at head dim 256 and at (192, 128): mma.sync
 // ---------------------------------------------------------------------------
 // 16 bytes from src into shared memory, or 16 zero bytes where !valid (src is
 // then not read, but must still be a mapped address).
@@ -901,28 +909,32 @@ __device__ __forceinline__ void load_b_trans(uint32_t (&b)[4], const unsigned ch
 constexpr int kKeyTile = 64;  // keys a dK/dV block owns: 16 a warp (group)
 constexpr int kRowTile = 64;  // query rows a dQ block owns: 16 a warp
 
-template <int HD, int DSPLIT, int BMQ>
+// HD is the Q.K head dim (q, k, dq, dk), HDV V's (v, o, dO, dv): the same
+// but for latent attention's (192, 128).
+template <int HD, int HDV, int DSPLIT, int BMQ>
 struct DkdvLayout {
   static constexpr int kThreads = 128 * DSPLIT;
   static constexpr int kP = Pitch<HD>::kBytes;
+  static constexpr int kPV = Pitch<HDV>::kBytes;
   static constexpr int kK = 0;
   static constexpr int kV = kK + kKeyTile * kP;
-  static constexpr int kQ = kV + kKeyTile * kP;        // two buffers of BMQ rows
+  static constexpr int kQ = kV + kKeyTile * kPV;       // two buffers of BMQ rows
   static constexpr int kG = kQ + 2 * BMQ * kP;         // dO, two buffers
-  static constexpr int kL = kG + 2 * BMQ * kP;         // lse, two buffers of BMQ
+  static constexpr int kL = kG + 2 * BMQ * kPV;        // lse, two buffers of BMQ
   static constexpr int kD = kL + 2 * BMQ * 4;          // D, two buffers
   static constexpr int kBytes = kD + 2 * BMQ * 4;
 };
 
 // dK and dV of a tile of 64 keys of one (batch, KV head). Warp w owns keys
-// 16 (w / DSPLIT) .. + 15 and the HD / DSPLIT columns from (w % DSPLIT) HD /
-// DSPLIT. Lane (g, t4) holds S^T and dP^T for keys g, g + 8 and queries
-// 8 j + 2 t4, + 1 of each 8-query n-tile j, and dK and dV for the same keys
-// and columns 8 j + 2 t4, + 1 of each 8-column n-tile.
-template <int HD, int DSPLIT, int BMQ, bool CAP>
+// 16 (w / DSPLIT) .. + 15 and the HD / DSPLIT columns of dK from (w % DSPLIT)
+// HD / DSPLIT (HDV / DSPLIT of dV likewise). Lane (g, t4) holds S^T and dP^T
+// for keys g, g + 8 and queries 8 j + 2 t4, + 1 of each 8-query n-tile j, and
+// dK and dV for the same keys and columns 8 j + 2 t4, + 1 of each 8-column
+// n-tile.
+template <int HD, int HDV, int DSPLIT, int BMQ, bool CAP>
 __global__ void __launch_bounds__(128 * DSPLIT) bwd_dkdv_bf16(const Params p) {
-  using L = DkdvLayout<HD, DSPLIT, BMQ>;
-  constexpr int kCols = HD / DSPLIT;
+  using L = DkdvLayout<HD, HDV, DSPLIT, BMQ>;
+  constexpr int kCols = HD / DSPLIT, kColsV = HDV / DSPLIT;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* Ks = smem + L::kK;
   unsigned char* Vs = smem + L::kV;
@@ -934,15 +946,18 @@ __global__ void __launch_bounds__(128 * DSPLIT) bwd_dkdv_bf16(const Params p) {
   const int rep = p.H / p.Hkv;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
   const int kw = (warp / DSPLIT) * 16;
-  const int c0 = (warp % DSPLIT) * kCols;
+  const int c0 = (warp % DSPLIT) * kCols, cv0 = (warp % DSPLIT) * kColsV;
   const long long kv_rs = static_cast<long long>(p.Hkv) * HD;
+  const long long vv_rs = static_cast<long long>(p.Hkv) * HDV;
   const long long q_rs = static_cast<long long>(p.H) * HD;
-  const long long kv_off = (static_cast<long long>(b) * p.S * p.Hkv + hk) * HD;
+  const long long g_rs = static_cast<long long>(p.H) * HDV;
+  const long long kv_row = static_cast<long long>(b) * p.S * p.Hkv + hk;
+  const long long kv_off = kv_row * HD, vv_off = kv_row * HDV;
   const bf16* kg = static_cast<const bf16*>(p.k) + kv_off;
-  const bf16* vg = static_cast<const bf16*>(p.v) + kv_off;
+  const bf16* vg = static_cast<const bf16*>(p.v) + vv_off;
 
   load_tile<HD, kKeyTile, L::kThreads>(Ks, kg + k0 * kv_rs, kv_rs, p.S - k0, p.k);
-  load_tile<HD, kKeyTile, L::kThreads>(Vs, vg + k0 * kv_rs, kv_rs, p.S - k0, p.v);
+  load_tile<HDV, kKeyTile, L::kThreads>(Vs, vg + k0 * vv_rs, vv_rs, p.S - k0, p.v);
   cp_async_commit();
 
   int q_lo, q_hi;
@@ -955,21 +970,23 @@ __global__ void __launch_bounds__(128 * DSPLIT) bwd_dkdv_bf16(const Params p) {
   // into buffer it & 1.
   auto load_next = [&](int it) {
     const int h = hk * rep + it / n_t, q0 = (t_lo + it % n_t) * BMQ, buf = it & 1;
-    const long long q_off = (static_cast<long long>(b) * p.S * p.H + h) * HD;
+    const long long q_row = static_cast<long long>(b) * p.S * p.H + h;
     const long long row = (static_cast<long long>(b) * p.H + h) * p.S;
     load_tile<HD, BMQ, L::kThreads>(smem + L::kQ + buf * BMQ * L::kP,
-                                    static_cast<const bf16*>(p.q) + q_off + q0 * q_rs, q_rs,
+                                    static_cast<const bf16*>(p.q) + q_row * HD + q0 * q_rs, q_rs,
                                     p.S - q0, p.q);
-    load_tile<HD, BMQ, L::kThreads>(smem + L::kG + buf * BMQ * L::kP,
-                                    static_cast<const bf16*>(p.dout) + q_off + q0 * q_rs, q_rs,
-                                    p.S - q0, p.dout);
+    load_tile<HDV, BMQ, L::kThreads>(smem + L::kG + buf * BMQ * L::kPV,
+                                     static_cast<const bf16*>(p.dout) + q_row * HDV + q0 * g_rs,
+                                     g_rs, p.S - q0, p.dout);
     load_row<BMQ, L::kThreads>(lse_s + buf * BMQ, p.lse + row, q0, p.S);
     load_row<BMQ, L::kThreads>(dsum_s + buf * BMQ, p.dsum + row, q0, p.S);
   };
 
-  float dk[kCols / 2], dv[kCols / 2];
+  float dk[kCols / 2], dv[kColsV / 2];
 #pragma unroll
-  for (int i = 0; i < kCols / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < kCols / 2; ++i) dk[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kColsV / 2; ++i) dv[i] = 0.f;
   const int kpos0 = k0 + kw + g, kpos1 = kpos0 + 8;
 
   if (n_it > 0) load_next(0);
@@ -981,7 +998,7 @@ __global__ void __launch_bounds__(128 * DSPLIT) bwd_dkdv_bf16(const Params p) {
     __syncthreads();
     const int buf = it & 1, q0 = (t_lo + it % n_t) * BMQ;
     const unsigned char* Qs = smem + L::kQ + buf * BMQ * L::kP;
-    const unsigned char* Gs = smem + L::kG + buf * BMQ * L::kP;
+    const unsigned char* Gs = smem + L::kG + buf * BMQ * L::kPV;
     const float* ls = lse_s + buf * BMQ;
     const float* ds = dsum_s + buf * BMQ;
 
@@ -989,20 +1006,47 @@ __global__ void __launch_bounds__(128 * DSPLIT) bwd_dkdv_bf16(const Params p) {
     float st[BMQ / 2], dpt[BMQ / 2];
 #pragma unroll
     for (int i = 0; i < BMQ / 2; ++i) st[i] = dpt[i] = 0.f;
+    if constexpr (HD == HDV) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a<HD>(ka, Ks, kw, kk * 16, lane);
-      load_a<HD>(va, Vs, kw, kk * 16, lane);
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t ka[4], va[4];
+        load_a<HD>(ka, Ks, kw, kk * 16, lane);
+        load_a<HD>(va, Vs, kw, kk * 16, lane);
 #pragma unroll
-      for (int nt = 0; nt < BMQ / 16; ++nt) {
-        uint32_t qb[4], gb[4];
-        load_b<HD>(qb, Qs, nt * 16, kk * 16, lane);
-        load_b<HD>(gb, Gs, nt * 16, kk * 16, lane);
-        mma(&st[8 * nt], ka, qb[0], qb[1]);
-        mma(&st[8 * nt + 4], ka, qb[2], qb[3]);
-        mma(&dpt[8 * nt], va, gb[0], gb[1]);
-        mma(&dpt[8 * nt + 4], va, gb[2], gb[3]);
+        for (int nt = 0; nt < BMQ / 16; ++nt) {
+          uint32_t qb[4], gb[4];
+          load_b<HD>(qb, Qs, nt * 16, kk * 16, lane);
+          load_b<HD>(gb, Gs, nt * 16, kk * 16, lane);
+          mma(&st[8 * nt], ka, qb[0], qb[1]);
+          mma(&st[8 * nt + 4], ka, qb[2], qb[3]);
+          mma(&dpt[8 * nt], va, gb[0], gb[1]);
+          mma(&dpt[8 * nt + 4], va, gb[2], gb[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t ka[4];
+        load_a<HD>(ka, Ks, kw, kk * 16, lane);
+#pragma unroll
+        for (int nt = 0; nt < BMQ / 16; ++nt) {
+          uint32_t qb[4];
+          load_b<HD>(qb, Qs, nt * 16, kk * 16, lane);
+          mma(&st[8 * nt], ka, qb[0], qb[1]);
+          mma(&st[8 * nt + 4], ka, qb[2], qb[3]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < HDV / 16; ++kk) {
+        uint32_t va[4];
+        load_a<HDV>(va, Vs, kw, kk * 16, lane);
+#pragma unroll
+        for (int nt = 0; nt < BMQ / 16; ++nt) {
+          uint32_t gb[4];
+          load_b<HDV>(gb, Gs, nt * 16, kk * 16, lane);
+          mma(&dpt[8 * nt], va, gb[0], gb[1]);
+          mma(&dpt[8 * nt + 4], va, gb[2], gb[3]);
+        }
       }
     }
 
@@ -1032,56 +1076,97 @@ __global__ void __launch_bounds__(128 * DSPLIT) bwd_dkdv_bf16(const Params p) {
       uint32_t pa[4], sa[4];
       acc_to_a(pa, st, kk);
       acc_to_a(sa, dpt, kk);
+      if constexpr (HD == HDV) {
 #pragma unroll
-      for (int nt = 0; nt < kCols / 16; ++nt) {
-        uint32_t gb[4], qb[4];
-        load_b_trans<HD>(gb, Gs, kk * 16, c0 + nt * 16, lane);
-        load_b_trans<HD>(qb, Qs, kk * 16, c0 + nt * 16, lane);
-        mma(&dv[8 * nt], pa, gb[0], gb[1]);
-        mma(&dv[8 * nt + 4], pa, gb[2], gb[3]);
-        mma(&dk[8 * nt], sa, qb[0], qb[1]);
-        mma(&dk[8 * nt + 4], sa, qb[2], qb[3]);
+        for (int nt = 0; nt < kCols / 16; ++nt) {
+          uint32_t gb[4], qb[4];
+          load_b_trans<HD>(gb, Gs, kk * 16, c0 + nt * 16, lane);
+          load_b_trans<HD>(qb, Qs, kk * 16, c0 + nt * 16, lane);
+          mma(&dv[8 * nt], pa, gb[0], gb[1]);
+          mma(&dv[8 * nt + 4], pa, gb[2], gb[3]);
+          mma(&dk[8 * nt], sa, qb[0], qb[1]);
+          mma(&dk[8 * nt + 4], sa, qb[2], qb[3]);
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < kColsV / 16; ++nt) {
+          uint32_t gb[4];
+          load_b_trans<HDV>(gb, Gs, kk * 16, cv0 + nt * 16, lane);
+          mma(&dv[8 * nt], pa, gb[0], gb[1]);
+          mma(&dv[8 * nt + 4], pa, gb[2], gb[3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < kCols / 16; ++nt) {
+          uint32_t qb[4];
+          load_b_trans<HD>(qb, Qs, kk * 16, c0 + nt * 16, lane);
+          mma(&dk[8 * nt], sa, qb[0], qb[1]);
+          mma(&dk[8 * nt + 4], sa, qb[2], qb[3]);
+        }
       }
     }
     __syncthreads();  // the next iteration's load_next refills this buffer
   }
 
   bf16* dkg = static_cast<bf16*>(p.dk) + kv_off;
-  bf16* dvg = static_cast<bf16*>(p.dv) + kv_off;
+  bf16* dvg = static_cast<bf16*>(p.dv) + vv_off;
+  if constexpr (HD == HDV) {
 #pragma unroll
-  for (int j = 0; j < kCols / 8; ++j) {
-    const int col = c0 + 8 * j + 2 * t4;
-    if (kpos0 < p.S) {
-      *reinterpret_cast<__nv_bfloat162*>(dkg + kpos0 * kv_rs + col) =
-          __floats2bfloat162_rn(dk[4 * j] * p.scale, dk[4 * j + 1] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvg + kpos0 * kv_rs + col) =
-          __floats2bfloat162_rn(dv[4 * j], dv[4 * j + 1]);
+    for (int j = 0; j < kCols / 8; ++j) {
+      const int col = c0 + 8 * j + 2 * t4;
+      if (kpos0 < p.S) {
+        *reinterpret_cast<__nv_bfloat162*>(dkg + kpos0 * kv_rs + col) =
+            __floats2bfloat162_rn(dk[4 * j] * p.scale, dk[4 * j + 1] * p.scale);
+        *reinterpret_cast<__nv_bfloat162*>(dvg + kpos0 * kv_rs + col) =
+            __floats2bfloat162_rn(dv[4 * j], dv[4 * j + 1]);
+      }
+      if (kpos1 < p.S) {
+        *reinterpret_cast<__nv_bfloat162*>(dkg + kpos1 * kv_rs + col) =
+            __floats2bfloat162_rn(dk[4 * j + 2] * p.scale, dk[4 * j + 3] * p.scale);
+        *reinterpret_cast<__nv_bfloat162*>(dvg + kpos1 * kv_rs + col) =
+            __floats2bfloat162_rn(dv[4 * j + 2], dv[4 * j + 3]);
+      }
     }
-    if (kpos1 < p.S) {
-      *reinterpret_cast<__nv_bfloat162*>(dkg + kpos1 * kv_rs + col) =
-          __floats2bfloat162_rn(dk[4 * j + 2] * p.scale, dk[4 * j + 3] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvg + kpos1 * kv_rs + col) =
-          __floats2bfloat162_rn(dv[4 * j + 2], dv[4 * j + 3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j) {
+      const int col = c0 + 8 * j + 2 * t4;
+      if (kpos0 < p.S)
+        *reinterpret_cast<__nv_bfloat162*>(dkg + kpos0 * kv_rs + col) =
+            __floats2bfloat162_rn(dk[4 * j] * p.scale, dk[4 * j + 1] * p.scale);
+      if (kpos1 < p.S)
+        *reinterpret_cast<__nv_bfloat162*>(dkg + kpos1 * kv_rs + col) =
+            __floats2bfloat162_rn(dk[4 * j + 2] * p.scale, dk[4 * j + 3] * p.scale);
+    }
+#pragma unroll
+    for (int j = 0; j < kColsV / 8; ++j) {
+      const int col = cv0 + 8 * j + 2 * t4;
+      if (kpos0 < p.S)
+        *reinterpret_cast<__nv_bfloat162*>(dvg + kpos0 * vv_rs + col) =
+            __floats2bfloat162_rn(dv[4 * j], dv[4 * j + 1]);
+      if (kpos1 < p.S)
+        *reinterpret_cast<__nv_bfloat162*>(dvg + kpos1 * vv_rs + col) =
+            __floats2bfloat162_rn(dv[4 * j + 2], dv[4 * j + 3]);
     }
   }
 }
 
-template <int HD, int BN>
+template <int HD, int HDV, int BN>
 struct DqLayout {
   static constexpr int kP = Pitch<HD>::kBytes;
+  static constexpr int kPV = Pitch<HDV>::kBytes;
   static constexpr int kQ = 0;
   static constexpr int kG = kQ + kRowTile * kP;
-  static constexpr int kK = kG + kRowTile * kP;  // two buffers of BN rows
-  static constexpr int kV = kK + 2 * BN * kP;    // two buffers
-  static constexpr int kBytes = kV + 2 * BN * kP;
+  static constexpr int kK = kG + kRowTile * kPV;  // two buffers of BN rows
+  static constexpr int kV = kK + 2 * BN * kP;     // two buffers
+  static constexpr int kBytes = kV + 2 * BN * kPV;
 };
 
 // dQ of 64 query rows of one (batch, head). Warp w owns rows 16 w .. + 15;
 // lane (g, t4) holds S and dP for rows g, g + 8 and keys 8 j + 2 t4, + 1 of
 // each 8-key n-tile j, and dQ for the same rows and columns 8 j + 2 t4, + 1.
-template <int HD, int BN, bool CAP>
+template <int HD, int HDV, int BN, bool CAP>
 __global__ void __launch_bounds__(128) bwd_dq_bf16(const Params p) {
-  using L = DqLayout<HD, BN>;
+  using L = DqLayout<HD, HDV, BN>;
   extern __shared__ __align__(16) unsigned char smem[];
   const unsigned char* Qs = smem + L::kQ;
   const unsigned char* Gs = smem + L::kG;
@@ -1091,17 +1176,20 @@ __global__ void __launch_bounds__(128) bwd_dq_bf16(const Params p) {
   const int hk = h / (p.H / p.Hkv);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
   const long long kv_rs = static_cast<long long>(p.Hkv) * HD;
+  const long long vv_rs = static_cast<long long>(p.Hkv) * HDV;
   const long long q_rs = static_cast<long long>(p.H) * HD;
-  const long long q_off = (static_cast<long long>(b) * p.S * p.H + h) * HD;
-  const long long kv_off = (static_cast<long long>(b) * p.S * p.Hkv + hk) * HD;
-  const bf16* kg = static_cast<const bf16*>(p.k) + kv_off;
-  const bf16* vg = static_cast<const bf16*>(p.v) + kv_off;
+  const long long g_rs = static_cast<long long>(p.H) * HDV;
+  const long long q_row = static_cast<long long>(b) * p.S * p.H + h;
+  const long long q_off = q_row * HD;
+  const long long kv_row = static_cast<long long>(b) * p.S * p.Hkv + hk;
+  const bf16* kg = static_cast<const bf16*>(p.k) + kv_row * HD;
+  const bf16* vg = static_cast<const bf16*>(p.v) + kv_row * HDV;
 
   load_tile<HD, kRowTile, 128>(smem + L::kQ, static_cast<const bf16*>(p.q) + q_off + q0 * q_rs,
                                q_rs, p.S - q0, p.q);
-  load_tile<HD, kRowTile, 128>(smem + L::kG,
-                               static_cast<const bf16*>(p.dout) + q_off + q0 * q_rs, q_rs,
-                               p.S - q0, p.dout);
+  load_tile<HDV, kRowTile, 128>(smem + L::kG,
+                                static_cast<const bf16*>(p.dout) + q_row * HDV + q0 * g_rs,
+                                g_rs, p.S - q0, p.dout);
   cp_async_commit();
 
   const int qpos0 = q0 + warp * 16 + g, qpos1 = qpos0 + 8;
@@ -1119,8 +1207,8 @@ __global__ void __launch_bounds__(128) bwd_dq_bf16(const Params p) {
     const int kv0 = (t_lo + i) * BN, buf = i & 1;
     load_tile<HD, BN, 128>(smem + L::kK + buf * BN * L::kP, kg + kv0 * kv_rs, kv_rs, p.S - kv0,
                            p.k);
-    load_tile<HD, BN, 128>(smem + L::kV + buf * BN * L::kP, vg + kv0 * kv_rs, kv_rs, p.S - kv0,
-                           p.v);
+    load_tile<HDV, BN, 128>(smem + L::kV + buf * BN * L::kPV, vg + kv0 * vv_rs, vv_rs,
+                            p.S - kv0, p.v);
   };
 
   float dq[HD / 2];
@@ -1136,26 +1224,53 @@ __global__ void __launch_bounds__(128) bwd_dq_bf16(const Params p) {
     __syncthreads();
     const int kv0 = (t_lo + i) * BN, buf = i & 1;
     const unsigned char* Ks = smem + L::kK + buf * BN * L::kP;
-    const unsigned char* Vs = smem + L::kV + buf * BN * L::kP;
+    const unsigned char* Vs = smem + L::kV + buf * BN * L::kPV;
 
     // S = Q_w K^T and dP = dO_w V^T, 16 rows x BN keys.
     float s[BN / 2], dp[BN / 2];
 #pragma unroll
     for (int j = 0; j < BN / 2; ++j) s[j] = dp[j] = 0.f;
+    if constexpr (HD == HDV) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t qa[4], ga[4];
-      load_a<HD>(qa, Qs, warp * 16, kk * 16, lane);
-      load_a<HD>(ga, Gs, warp * 16, kk * 16, lane);
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t qa[4], ga[4];
+        load_a<HD>(qa, Qs, warp * 16, kk * 16, lane);
+        load_a<HD>(ga, Gs, warp * 16, kk * 16, lane);
 #pragma unroll
-      for (int nt = 0; nt < BN / 16; ++nt) {
-        uint32_t kb[4], vb[4];
-        load_b<HD>(kb, Ks, nt * 16, kk * 16, lane);
-        load_b<HD>(vb, Vs, nt * 16, kk * 16, lane);
-        mma(&s[8 * nt], qa, kb[0], kb[1]);
-        mma(&s[8 * nt + 4], qa, kb[2], kb[3]);
-        mma(&dp[8 * nt], ga, vb[0], vb[1]);
-        mma(&dp[8 * nt + 4], ga, vb[2], vb[3]);
+        for (int nt = 0; nt < BN / 16; ++nt) {
+          uint32_t kb[4], vb[4];
+          load_b<HD>(kb, Ks, nt * 16, kk * 16, lane);
+          load_b<HD>(vb, Vs, nt * 16, kk * 16, lane);
+          mma(&s[8 * nt], qa, kb[0], kb[1]);
+          mma(&s[8 * nt + 4], qa, kb[2], kb[3]);
+          mma(&dp[8 * nt], ga, vb[0], vb[1]);
+          mma(&dp[8 * nt + 4], ga, vb[2], vb[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t qa[4];
+        load_a<HD>(qa, Qs, warp * 16, kk * 16, lane);
+#pragma unroll
+        for (int nt = 0; nt < BN / 16; ++nt) {
+          uint32_t kb[4];
+          load_b<HD>(kb, Ks, nt * 16, kk * 16, lane);
+          mma(&s[8 * nt], qa, kb[0], kb[1]);
+          mma(&s[8 * nt + 4], qa, kb[2], kb[3]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < HDV / 16; ++kk) {
+        uint32_t ga[4];
+        load_a<HDV>(ga, Gs, warp * 16, kk * 16, lane);
+#pragma unroll
+        for (int nt = 0; nt < BN / 16; ++nt) {
+          uint32_t vb[4];
+          load_b<HDV>(vb, Vs, nt * 16, kk * 16, lane);
+          mma(&dp[8 * nt], ga, vb[0], vb[1]);
+          mma(&dp[8 * nt + 4], ga, vb[2], vb[3]);
+        }
       }
     }
 
@@ -1503,12 +1618,12 @@ int launch_wgmma(const Params& p, cudaStream_t stream) {
 // DSPLIT: warps that share a 16-key slice of dK/dV, each with HD / DSPLIT
 // columns; BMQ: the query tile of the dK/dV kernel; BN: the key tile of the dQ
 // kernel. Chosen so that the accumulators fit in registers.
-template <int HD, int DSPLIT, int BMQ, int BN, bool CAP>
+template <int HD, int HDV, int DSPLIT, int BMQ, int BN, bool CAP>
 int launch_bf16(const Params& p, cudaStream_t stream) {
-  using LK = DkdvLayout<HD, DSPLIT, BMQ>;
-  using LQ = DqLayout<HD, BN>;
-  auto dkdv = bwd_dkdv_bf16<HD, DSPLIT, BMQ, CAP>;
-  auto dq = bwd_dq_bf16<HD, BN, CAP>;
+  using LK = DkdvLayout<HD, HDV, DSPLIT, BMQ>;
+  using LQ = DqLayout<HD, HDV, BN>;
+  auto dkdv = bwd_dkdv_bf16<HD, HDV, DSPLIT, BMQ, CAP>;
+  auto dq = bwd_dq_bf16<HD, HDV, BN, CAP>;
   static bool ready = false;
   if (!ready) {
     int e = allow_smem(dkdv, LK::kBytes);
@@ -1516,7 +1631,7 @@ int launch_bf16(const Params& p, cudaStream_t stream) {
     if (e != 0) return e;
     ready = true;
   }
-  int e = launch_dsum<bf16>(p, HD, stream);
+  int e = launch_dsum<bf16>(p, HDV, stream);
   if (e != 0) return e;
   dkdv<<<dim3((p.S + kKeyTile - 1) / kKeyTile, p.B * p.Hkv), LK::kThreads, LK::kBytes, stream>>>(
       p);
@@ -1544,29 +1659,36 @@ int launch_f32(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The mma route's tiles at head dim 256 (DSPLIT 2, BMQ 32, BN 32).
+// The mma route's tiles at head dim 256 and at (192, 128) (DSPLIT 2, BMQ 32,
+// BN 32).
 constexpr int kMmaDsplit = 2, kMmaBMQ = 32, kMmaBN = 32;
 
 }  // namespace
 
-extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                                   const void* dout, const float* lse, float* dsum, void* dq,
-                                   void* dk, void* dv, int dtype, int B, int S, int H, int Hkv,
-                                   int hd, int causal, int window, float softcap, float scale,
-                                   void* stream) {
+// hd is the Q.K head dim, hdv V's: equal, or (192, 128) in bf16 (latent
+// attention), which takes the mma.sync route.
+extern "C" int flash_attention_bwd_dv(const void* q, const void* k, const void* v,
+                                      const void* o, const void* dout, const float* lse,
+                                      float* dsum, void* dq, void* dk, void* dv, int dtype, int B,
+                                      int S, int H, int Hkv, int hd, int hdv, int causal,
+                                      int window, float softcap, float scale, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, H, Hkv,
                  causal, window, softcap, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool cap = softcap > 0.f;
+  if (dtype == 1 && hd == 192 && hdv == 128)
+    return cap ? launch_bf16<192, 128, kMmaDsplit, kMmaBMQ, kMmaBN, true>(p, st)
+               : launch_bf16<192, 128, kMmaDsplit, kMmaBMQ, kMmaBN, false>(p, st);
+  if (hdv != hd) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1) {
     switch (hd) {
       case 64: return cap ? launch_wgmma<64, true>(p, st) : launch_wgmma<64, false>(p, st);
       case 128: return cap ? launch_wgmma<128, true>(p, st) : launch_wgmma<128, false>(p, st);
       case 256:
-        return cap ? launch_bf16<256, kMmaDsplit, kMmaBMQ, kMmaBN, true>(p, st)
-                   : launch_bf16<256, kMmaDsplit, kMmaBMQ, kMmaBN, false>(p, st);
+        return cap ? launch_bf16<256, 256, kMmaDsplit, kMmaBMQ, kMmaBN, true>(p, st)
+                   : launch_bf16<256, 256, kMmaDsplit, kMmaBMQ, kMmaBN, false>(p, st);
     }
   } else if (dtype == 0) {
     switch (hd) {
@@ -1578,6 +1700,16 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same with V's head dim equal to hd.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                                   const void* dout, const float* lse, float* dsum, void* dq,
+                                   void* dk, void* dv, int dtype, int B, int S, int H, int Hkv,
+                                   int hd, int causal, int window, float softcap, float scale,
+                                   void* stream) {
+  return flash_attention_bwd_dv(q, k, v, o, dout, lse, dsum, dq, dk, dv, dtype, B, S, H, Hkv, hd,
+                                hd, causal, window, softcap, scale, stream);
 }
 
 // The backward's configuration for (dtype, hd), for the host's checks
@@ -1602,9 +1734,9 @@ extern "C" int flash_attention_bwd_tile(int dtype, int hd, int* out) {
         return put(2, kBwdKeys, kBwdBM, kBwdStages, kWsThreads, DkdvWg<128>::kBytes, kBwdRows,
                    kBwdBN, kBwdStages, kWsThreads, DqWg<128>::kBytes);
       case 256: {
-        using LK = DkdvLayout<256, kMmaDsplit, kMmaBMQ>;
+        using LK = DkdvLayout<256, 256, kMmaDsplit, kMmaBMQ>;
         return put(1, kKeyTile, kMmaBMQ, 2, LK::kThreads, LK::kBytes, kRowTile, kMmaBN, 2, 128,
-                   DqLayout<256, kMmaBN>::kBytes);
+                   DqLayout<256, 256, kMmaBN>::kBytes);
       }
     }
   } else if (dtype == 0) {
@@ -1619,4 +1751,17 @@ extern "C" int flash_attention_bwd_tile(int dtype, int hd, int* out) {
     if (smem > 0) return put(0, kT, kT, 1, kThreads, smem, kT, kT, 1, kThreads, smem);
   }
   return -1;
+}
+
+// The same at (bf16, Q.K head dim hd, V head dim hdv); -1 for a pair it does
+// not take.
+extern "C" int flash_attention_bwd_tile_dv(int dtype, int hd, int hdv, int* out) {
+  if (dtype == 1 && hd == 192 && hdv == 128) {
+    using LK = DkdvLayout<192, 128, kMmaDsplit, kMmaBMQ>;
+    const int v[11] = {1, kKeyTile, kMmaBMQ, 2, LK::kThreads, LK::kBytes, kRowTile, kMmaBN, 2,
+                       128, DqLayout<192, 128, kMmaBN>::kBytes};
+    for (int i = 0; i < 11; ++i) out[i] = v[i];
+    return 0;
+  }
+  return hdv == hd ? flash_attention_bwd_tile(dtype, hd, out) : -1;
 }

@@ -185,7 +185,8 @@ def _ssd_sharded(x, dtA, dt, B_, C_, chunk):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
-    """q (B, S, H, hd); k, v (B, S, Hkv, hd) with Hkv dividing H. Where
+    """q, k (B, S, H or Hkv, hd); v (B, S, Hkv, hdv), hdv = hd but at latent
+    attention's (192, 128); Hkv dividing H. Where
     autograd is on and an input requires grad, ``FlashAttentionFn`` (the
     forward kernel with its log-sum-exp, then the backward kernel)."""
     if isinstance(q, DTensor):

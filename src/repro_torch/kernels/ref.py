@@ -67,7 +67,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True,
                         window: Optional[int] = None, softcap: Optional[float] = None):
     """(dq, dk, dv) of ``flash_attention`` from the explicit formulas, in
-    f32, returned in the inputs' dtype. k and v have Hkv heads dividing H
+    f32, returned in the inputs' dtype. v may have a head dim of its own (the
+    output's), the scale is q's. k and v have Hkv heads dividing H
     (query head h reads KV head h // (H // Hkv)); dk and dv sum over each
     group. P = softmax(scores); dV = P^T dO; dP = dO V^T; D = rowsum(P * dP);
     dS = P * (dP - D), times 1 - tanh^2 under a soft-cap;
@@ -89,7 +90,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr.float()) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
     dk = dk.reshape(b, s, hkv, rep, hd).sum(3)
-    dv = dv.reshape(b, s, hkv, rep, hd).sum(3)
+    dv = dv.reshape(b, s, hkv, rep, v.shape[3]).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

@@ -46,19 +46,24 @@ def live_pairs(s: int, causal: bool, window) -> int:
     return int((hi - lo + 1).sum())
 
 
-def flash_work(b, s, h, hkv, hd, causal, window, itemsize) -> Work:
-    """Bytes: q, k, v read and the output written once; operations: two
-    products of 2 hd FLOP per live (query, key) pair and head."""
-    return ((2 * b * s * h * hd + 2 * b * s * hkv * hd) * itemsize,
-            4 * hd * b * h * live_pairs(s, causal, window))
+def flash_work(b, s, h, hkv, hd, causal, window, itemsize, hdv=None) -> Work:
+    """Bytes: q, k, v read and the output written once; operations: S =
+    Q K^T at 2 hd FLOP and O = P V at 2 hdv per live (query, key) pair and
+    head. ``hdv`` is V's head dim (the output's), by default ``hd``."""
+    hdv = hd if hdv is None else hdv
+    return ((b * s * h * (hd + hdv) + b * s * hkv * (hd + hdv)) * itemsize,
+            2 * (hd + hdv) * b * h * live_pairs(s, causal, window))
 
 
-def flash_bwd_work(b, s, h, hkv, hd, causal, window, itemsize) -> Work:
+def flash_bwd_work(b, s, h, hkv, hd, causal, window, itemsize, hdv=None) -> Work:
     """Bytes: q, k, v, o, dO read and dq, dk, dv written once, the
-    log-sum-exp read once; operations: five products of 2 hd FLOP per live
-    (query, key) pair and head (S, dP, dV, dK, dQ)."""
-    return ((5 * b * s * h * hd + 4 * b * s * hkv * hd) * itemsize + 4 * b * h * s,
-            10 * hd * b * h * live_pairs(s, causal, window))
+    log-sum-exp read once; operations: five products per live (query, key)
+    pair and head, S, dK and dQ at 2 hd FLOP, dP and dV at 2 hdv (V's head
+    dim, by default ``hd``)."""
+    hdv = hd if hdv is None else hdv
+    return ((b * s * h * (2 * hd + 3 * hdv) + 2 * b * s * hkv * (hd + hdv)) * itemsize
+            + 4 * b * h * s,
+            2 * (3 * hd + 2 * hdv) * b * h * live_pairs(s, causal, window))
 
 
 def decode_work(b, hq, hkv, hd, length, itemsize) -> Work:

@@ -58,6 +58,10 @@ def _global_bytes(acts) -> int:
 def lower_tier_cell(arch: str, compress: bool = False, microbatch_div: int = 8,
                     cfg_override=None):
     cfg = cfg_override or get_config(arch)
+    if cfg.is_mla:
+        raise NotImplementedError(f"{arch}: latent attention and the dropless MoE are not "
+                                  "sharded in the port; the dry-run takes the other "
+                                  "architectures")
     shape = SHAPES["train_4k"]
     ms = meshlib.mesh_spec(multi_pod=False)   # each tier is one 16 x 16 pod
     hapi = HapiConfig(compress_transfer=compress)

@@ -22,6 +22,13 @@ for each token, its kept slots and adds them in ascending expert order in
 f32, where the reference scatter-adds: no atomics, so two calls on the card
 give the same bits.
 
+Moonlight's layers have no JAX counterpart: latent attention (``MLA``,
+``mla_apply``), whose Q.K head dim of 192 and V head dim of 128 go to the
+flash kernels as they are, and DeepSeek-V3's MoE (``DeepSeekMoE``,
+``deepseek_moe_apply``): sigmoid routing with a frozen correction bias,
+experts that drop no token, run as grouped products over the rows sorted by
+expert (``grouped_mm``), and shared experts. Neither takes DTensors.
+
 On DTensors (the sharded step and the dry-run) the ops DTensor has no
 sharding rule for go through ``local_map`` with the placements the JAX
 package's constraints name: the embedding lookup (``embed_lookup``: the
@@ -48,6 +55,7 @@ from repro_torch.distributed.autoshard import (
     data_placements, dims_spec, grad_placements, mesh_model_size, model_partial, with_model)
 from repro_torch.kernels import ops
 from repro_torch.models.module import dense_init, dtype_of
+from repro_torch.obs.program import METRICS, TRACER, record_expert_loads
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +158,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     hd = x.shape[-1]
     half = hd // 2
     f32 = dict(dtype=torch.float32, device=x.device)
-    freqs = torch.exp(-torch.log(torch.tensor(theta, **f32))
+    # theta made on the device by a fill: a tensor copied from the host waits
+    # for the stream, which would stall the host at every attention layer.
+    freqs = torch.exp(-torch.log(torch.full((), theta, **f32))
                       * torch.arange(0, half, **f32) / half)
     angles = positions[..., None].to(torch.float32) * freqs  # (..., S, half)
     cos = torch.cos(angles)[..., None, :]  # (..., S, 1, half)
@@ -230,6 +240,58 @@ def attention_apply(
     return attend(p, q, k, v, cfg, window=window, causal=causal)
 
 
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (DeepSeek-V2/V3's MLA, Moonlight's)
+# ---------------------------------------------------------------------------
+class MLA(nn.Module):
+    """``wq`` (d, H, nope + rope); ``w_kv_a`` (d, r + rope): the latent and
+    the one rope head of K; ``kv_norm`` the latent's RMSNorm; ``w_kv_b``
+    (r, H, nope + v): each head's K nope part and V out of the latent; ``wo``
+    (H, v, d). Q has no latent of its own (``q_lora_rank`` null)."""
+
+    def __init__(self, cfg: ModelConfig, *, device, generator: torch.Generator):
+        super().__init__()
+        dt = dtype_of(cfg.param_dtype)
+        init = dict(dtype=dt, device=device)
+        d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+        nope, rope_d, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        self.wq = nn.Parameter(dense_init(generator, d, (h, nope + rope_d), **init))
+        self.w_kv_a = nn.Parameter(dense_init(generator, d, r + rope_d, **init))
+        self.kv_norm = RMSNorm(r, cfg.norm_eps, **init)
+        self.w_kv_b = nn.Parameter(dense_init(generator, r, (h, nope + dv), **init))
+        self.wo = nn.Parameter(dense_init(generator, h * dv, d, **init).reshape(h, dv, d))
+
+
+def mla_apply(p: MLA, x: torch.Tensor, cfg: ModelConfig, *,
+              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Causal MLA over the normed input x (B, S, D), as the published
+    ``DeepseekV3Attention`` with ``q_lora_rank`` null: Q = x wq split into
+    its nope and rope parts; [c_kv | k_pe] = x w_kv_a, c_kv RMS-normed; [k_nope
+    | v] = c_kv w_kv_b; rope on q_pe and on k_pe, one head shared by all; K =
+    [k_nope | k_pe] and Q = [q_nope | q_pe] at Q.K dim nope + rope, scale
+    1/sqrt(nope + rope); V at its own dim; then ``wo``. Rope rotates the
+    halves of the rope part (``rope``), where the published code pairs
+    neighbouring dims: a fixed permutation of the rope columns of ``wq`` and
+    ``w_kv_a``, the same model."""
+    if isinstance(x, DTensor):
+        raise NotImplementedError("latent attention is not sharded: run it on plain tensors")
+    tr = TRACER
+    b, s, _ = x.shape
+    h, r, nope = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_nope_head_dim
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    with tr.span("attn.mla", x):
+        q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+        kv_a = torch.matmul(x, p.w_kv_a)
+        c_kv = p.kv_norm(kv_a[..., :r])
+        k_pe = rope(kv_a[..., None, r:], positions, cfg.rope_theta)       # (B, S, 1, rope)
+        kv = torch.einsum("bsc,chk->bshk", c_kv, p.w_kv_b)               # (B, S, H, nope + v)
+        q = torch.cat([q[..., :nope], rope(q[..., nope:], positions, cfg.rope_theta)], dim=-1)
+        k = torch.cat([kv[..., :nope], k_pe.expand(b, s, h, k_pe.shape[-1])], dim=-1)
+        out = ops.flash_attention(q, k, kv[..., nope:], causal=True)
+        return merge_heads("bshd,hdm->bsm", out, p.wo)
+
+
 class KVCache(NamedTuple):
     k: torch.Tensor  # (B, Smax, Hkv, hd)
     v: torch.Tensor
@@ -304,10 +366,13 @@ def attention_decode(
 # Dense (SwiGLU) MLP
 # ---------------------------------------------------------------------------
 class MLP(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device, generator: torch.Generator):
+    """SwiGLU of width ``d_ff`` (by default ``cfg.d_ff``)."""
+
+    def __init__(self, cfg: ModelConfig, *, device, generator: torch.Generator,
+                 d_ff: int = 0):
         super().__init__()
         init = dict(dtype=dtype_of(cfg.param_dtype), device=device)
-        d, f = cfg.d_model, cfg.d_ff
+        d, f = cfg.d_model, d_ff or cfg.d_ff
         self.w_gate = nn.Parameter(dense_init(generator, d, f, **init))
         self.w_up = nn.Parameter(dense_init(generator, d, f, **init))
         self.w_down = nn.Parameter(dense_init(generator, f, d, **init))
@@ -484,6 +549,124 @@ def moe_aux_loss(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     frac_tokens = F.one_hot(top1, cfg.n_experts).to(torch.float32).mean(dim=(0, 1))
     frac_probs = probs.mean(dim=(0, 1))
     return cfg.n_experts * torch.sum(frac_tokens * frac_probs)
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V3's MoE (Moonlight): sigmoid routing with a correction bias,
+# experts that drop no token, shared experts
+# ---------------------------------------------------------------------------
+class DeepSeekMoE(nn.Module):
+    """``router`` (d, E) in ``param_dtype``, computed in f32 as the published
+    gate does; ``e_score_correction_bias`` (E,) an f32 buffer, not trained
+    (its update rule and the ``seq_aux`` balance loss are pretraining
+    devices); the routed experts' ``w_gate`` and ``w_up`` (E, d, f),
+    ``w_down`` (E, f, d); ``shared`` one SwiGLU of width
+    ``n_shared_experts * d_ff``, the shared experts side by side."""
+
+    def __init__(self, cfg: ModelConfig, *, device, generator: torch.Generator):
+        super().__init__()
+        init = dict(dtype=dtype_of(cfg.param_dtype), device=device)
+        d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+        self.router = nn.Parameter(dense_init(generator, d, e, **init))
+        self.register_buffer("e_score_correction_bias",
+                             torch.zeros(e, dtype=torch.float32, device=device))
+
+        def experts(fan_in, fan_out):
+            return torch.stack([dense_init(generator, fan_in, fan_out, **init)
+                                for _ in range(e)])
+
+        self.w_gate = nn.Parameter(experts(d, f))
+        self.w_up = nn.Parameter(experts(d, f))
+        self.w_down = nn.Parameter(experts(f, d))
+        self.shared = MLP(cfg, device=device, generator=generator,
+                          d_ff=cfg.n_shared_experts * f) if cfg.n_shared_experts else None
+
+
+class DroplessRouting(NamedTuple):
+    """Where ``deepseek_moe_apply`` sends each of T tokens: its K choices and
+    their weights, and the (token, choice) rows sorted by expert."""
+    top_e: torch.Tensor     # (T, K) experts, by descending s + b, the lower first at ties
+    weight: torch.Tensor    # (T, K) f32: s of the choice, over their sum, times the scale
+    order: torch.Tensor     # (T K,) row t K + j of each sorted row, by expert, then token
+    counts: torch.Tensor    # (E,) rows of each expert
+    ends: torch.Tensor      # (E,) int32, the end of each expert's rows among the sorted
+
+
+def deepseek_route(p: DeepSeekMoE, x: torch.Tensor, cfg: ModelConfig) -> DroplessRouting:
+    """DeepSeek-V3's ``noaux_tc`` gate over x (T, D): s = sigmoid(x_f32 W_r),
+    the top K of s + b chosen, their s renormalised (over the sum plus
+    1e-20, as published) and times ``routed_scaling_factor``. With one group
+    (``n_group`` = ``topk_group`` = 1) the group-limited step keeps every
+    expert: it is the identity, and is left out."""
+    k = cfg.top_k
+    s = torch.sigmoid(torch.matmul(x.to(torch.float32), p.router.to(torch.float32)))
+    # A stable descending sort puts the lower expert first among equal
+    # scores (torch.topk does not say which it keeps).
+    top_e = torch.sort(s.detach() + p.e_score_correction_bias, dim=-1, descending=True,
+                       stable=True).indices[:, :k]
+    w = s.gather(-1, top_e)
+    w = w / (w.sum(dim=-1, keepdim=True) + 1e-20) * cfg.routed_scaling_factor
+    flat = top_e.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    # Counted by a scatter-add: bincount reads the largest index on the host.
+    counts = torch.zeros(cfg.n_experts, dtype=torch.int64, device=x.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+    return DroplessRouting(top_e, w, order, counts,
+                           torch.cumsum(counts, 0).to(torch.int32))
+
+
+def grouped_mm(x: torch.Tensor, w: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """Rows [ends[e - 1], ends[e]) of x (N, K) times w[e] (K, M), for every
+    expert e: (N, M). bf16 on the card goes to ``torch._grouped_mm`` (no host
+    sync); elsewhere (the CPU, f32) a product a group over host offsets."""
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        return torch._grouped_mm(x, w, offs=ends)
+    out, lo = [], 0
+    for e, hi in enumerate(ends.tolist()):
+        out.append(torch.matmul(x[lo:hi], w[e]))
+        lo = hi
+    return torch.cat(out)
+
+
+def deepseek_moe_apply(p: DeepSeekMoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """DeepSeek-V3's MoE over x (B, S, D): every token's K routed experts,
+    no capacity and no token dropped, and the shared experts. The (token,
+    choice) rows, sorted by expert, go through each expert's SwiGLU as
+    grouped products; each token then gathers its K rows and adds them,
+    weighted, in f32 in the order of its choices, with no atomics, so two
+    calls on the card give the same bits; the shared experts' output is
+    added unweighted."""
+    if isinstance(x, DTensor):
+        raise NotImplementedError("the dropless MoE (sigmoid_bias router) is not sharded: "
+                                  "run it on plain tensors")
+    tr, mx = TRACER, METRICS
+    b, s, d = x.shape
+    k = cfg.top_k
+    xt = x.reshape(b * s, d)
+    with tr.span("moe.route", x):
+        r = deepseek_route(p, xt, cfg)
+        if tr.enabled:
+            mx.inc("moe_routed_rows_total", b * s * k)
+            record_expert_loads(r.counts)
+    with tr.span("moe.experts", xt):
+        # Each token's row K times, then sorted: the gather's backward
+        # writes each row once and the sum over the K copies has a fixed
+        # order (a gather by order // K would scatter-add into each token).
+        xs = xt[:, None].expand(b * s, k, d).reshape(b * s * k, d)[r.order]
+        hidden = F.silu(grouped_mm(xs, p.w_gate, r.ends)) * grouped_mm(xs, p.w_up, r.ends)
+        ys = grouped_mm(hidden, p.w_down, r.ends)
+    with tr.span("moe.combine", ys):
+        # Row t K + j of the sorted rows' inverse: where slot (t, j) landed.
+        where = torch.empty_like(r.order)
+        where[r.order] = torch.arange(r.order.numel(), device=x.device)
+        where = where.view(b * s, k)
+        y = ys[where[:, 0]].to(torch.float32) * r.weight[:, :1]
+        for j in range(1, k):
+            y = y + ys[where[:, j]].to(torch.float32) * r.weight[:, j:j + 1]
+        y = y.to(x.dtype).view(b, s, d)
+    if p.shared is not None:
+        y = y + mlp_apply(p.shared, x)
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@ Counterpart of ``repro/models/transformer.py``:
     gemma2: block == (local, global) pair; hybrid (jamba): block == one
     period of ``attn_period`` sublayers, attention at ``attn_pos`` and mamba
     elsewhere, a MoE FFN on every ``moe_every``-th sublayer and a SwiGLU MLP
-    on the others (``block_plan``).
+    on the others (``block_plan``). Moonlight (moe with latent attention):
+    MLA and DeepSeek-V3's dropless MoE, the first ``first_k_dense`` blocks
+    with a dense SwiGLU instead; it trains and extracts, and does not serve.
   * ``LM.split_params(split)`` gives the two halves of the paper's tier
     split as modules that share the LM's parameters: ``Prefix`` runs the
     embedding and blocks [0, split) (``forward_prefix``), ``Suffix`` runs
@@ -57,11 +59,19 @@ from repro_torch.obs.program import METRICS, TRACER
 # ---------------------------------------------------------------------------
 @dataclass(frozen=True)
 class SubLayer:
-    mixer: str                 # "attn" | "attn_local" | "mamba"
+    mixer: str                 # "attn" | "attn_local" | "mla" | "mamba"
     ffn: str                   # "mlp" | "moe" | "none"
+    d_ff: int = 0              # the MLP's width where it is not cfg.d_ff
 
 
-def block_plan(cfg: ModelConfig) -> List[SubLayer]:
+def block_plan(cfg: ModelConfig, index: int = 0) -> List[SubLayer]:
+    """The sublayers of block ``index``: the same for every block but a MoE
+    family's first ``first_k_dense``, whose FFN is a SwiGLU of
+    ``d_ff_dense``."""
+    if cfg.family == "moe" and cfg.is_mla:
+        if cfg.dense_block(index):
+            return [SubLayer("mla", "mlp", cfg.d_ff_dense)]
+        return [SubLayer("mla", "moe")]
     if cfg.family in ("dense", "vlm"):
         if cfg.local_global_period:
             # gemma2: alternate sliding-window local and global attention.
@@ -91,37 +101,52 @@ class Sublayer(nn.Module):
     def __init__(self, cfg: ModelConfig, sub: SubLayer, *, device,
                  generator: torch.Generator):
         super().__init__()
-        if sub.mixer not in ("attn", "attn_local", "mamba") or \
+        if sub.mixer not in ("attn", "attn_local", "mla", "mamba") or \
                 sub.ffn not in ("mlp", "moe", "none"):
             raise ValueError(f"unknown sublayer {sub}")
         init = dict(dtype=dtype_of(cfg.param_dtype), device=device)
         self.cfg = cfg
         self.is_mamba = sub.mixer == "mamba"
+        self.is_mla = sub.mixer == "mla"
         self.ffn = sub.ffn
         self.window = cfg.sliding_window if sub.mixer == "attn_local" else None
         self.ln_mixer = L.RMSNorm(cfg.d_model, cfg.norm_eps, **init)
         if self.is_mamba:
             self.mamba = S.Mamba(cfg, device=device, generator=generator)
+        elif self.is_mla:
+            self.attn = L.MLA(cfg, device=device, generator=generator)
         else:
             self.attn = L.Attention(cfg, device=device, generator=generator)
         if self.ffn != "none":
             self.ln_ffn = L.RMSNorm(cfg.d_model, cfg.norm_eps, **init)
         if self.ffn == "mlp":
-            self.mlp = L.MLP(cfg, device=device, generator=generator)
+            self.mlp = L.MLP(cfg, device=device, generator=generator, d_ff=sub.d_ff)
+        elif self.ffn == "moe" and cfg.router == "sigmoid_bias":
+            self.moe = L.DeepSeekMoE(cfg, device=device, generator=generator)
         elif self.ffn == "moe":
             self.moe = L.MoE(cfg, device=device, generator=generator)
 
     def _ffn(self, h: torch.Tensor) -> torch.Tensor:
         if self.ffn == "mlp":
             return h + L.mlp_apply(self.mlp, self.ln_ffn(h))
+        if self.ffn == "moe" and self.cfg.router == "sigmoid_bias":
+            return h + L.deepseek_moe_apply(self.moe, self.ln_ffn(h), self.cfg)
         if self.ffn == "moe":
             return h + L.moe_apply(self.moe, self.ln_ffn(h), self.cfg)
         return h
+
+    def _no_mla_cache(self):
+        if self.is_mla:
+            raise NotImplementedError(
+                f"{self.cfg.name}: latent attention has no decode cache in the port yet "
+                "(training and the pushdown run it; serving does not)")
 
     def forward(self, h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         x = self.ln_mixer(h)
         if self.is_mamba:
             y = S.ssm_apply(self.mamba, x, self.cfg)
+        elif self.is_mla:
+            y = L.mla_apply(self.attn, x, self.cfg, positions=positions)
         else:
             y = L.attention_apply(self.attn, x, self.cfg, window=self.window,
                                   positions=positions)
@@ -129,6 +154,7 @@ class Sublayer(nn.Module):
 
     def prefill(self, h: torch.Tensor, positions: torch.Tensor):
         """Like forward, but also returns this sublayer's decode cache."""
+        self._no_mla_cache()
         x = self.ln_mixer(h)
         if self.is_mamba:
             y, cache = S.ssm_prefill(self.mamba, x, self.cfg)
@@ -138,6 +164,7 @@ class Sublayer(nn.Module):
         return self._ffn(h + y), cache
 
     def decode(self, h: torch.Tensor, cache, pos: int):
+        self._no_mla_cache()
         x = self.ln_mixer(h)
         if self.is_mamba:
             y, cache = S.ssm_decode(self.mamba, x, cache, self.cfg)
@@ -147,6 +174,7 @@ class Sublayer(nn.Module):
         return self._ffn(h + y), cache
 
     def init_cache(self, batch: int, smax: int):
+        self._no_mla_cache()
         device = self.ln_mixer.scale.device
         if self.is_mamba:
             return S.ssm_init_cache(self.cfg, batch, device=device)
@@ -168,9 +196,9 @@ BlockCache = Dict[str, object]   # {"sub{j}": KVCache | MambaCache}
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device, generator: torch.Generator):
+    def __init__(self, cfg: ModelConfig, *, device, generator: torch.Generator, index: int = 0):
         super().__init__()
-        for i, sub in enumerate(block_plan(cfg)):
+        for i, sub in enumerate(block_plan(cfg, index)):
             self.add_module(f"sub{i}", Sublayer(cfg, sub, device=device, generator=generator))
 
     def forward(self, h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -203,7 +231,7 @@ def _embed_tokens(embed: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig,
     if cfg.family == "vlm" and patches is not None:
         # LLaVA stub frontend: prepend pre-computed patch embeddings.
         h = torch.cat([patches.to(h.dtype), h], dim=1)
-    root_d = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32, device=h.device))
+    root_d = torch.sqrt(torch.full((), float(cfg.d_model), dtype=torch.float32, device=h.device))
     return constrain_act(h * root_d.to(h.dtype))
 
 
@@ -443,7 +471,8 @@ def build_lm(cfg: ModelConfig, *, device="cuda", generator: torch.Generator) -> 
         raise ValueError(f"build_lm takes no {cfg.family} model")
     dt = dtype_of(cfg.param_dtype)
     embed = nn.Parameter(embed_init(generator, cfg.padded_vocab, cfg.d_model, dt, device))
-    blocks = [Block(cfg, device=device, generator=generator) for _ in range(cfg.n_blocks)]
+    blocks = [Block(cfg, device=device, generator=generator, index=i)
+              for i in range(cfg.n_blocks)]
     final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dt, device=device)
     unembed = None
     if not cfg.tie_embeddings:

@@ -29,10 +29,13 @@ step, an extraction call, a request) of host ms, stream ms and self ms (the
 span less its children), and the counters. :func:`idle_gaps` names a
 profiler trace's idle device time by the innermost ``repro_torch.*`` range,
 and :func:`export_beside` writes the spans into a profiler's chrome trace.
+A MoE call also keeps its experts' load imbalance (:func:`record_expert_loads`),
+worked out on the card and read with the window.
 """
 from __future__ import annotations
 
 import bisect
+import collections
 import contextlib
 import json
 import statistics
@@ -246,6 +249,17 @@ class ProgramTracer(Tracer):
 #: The program's tracer and registry: one each per process.
 TRACER = ProgramTracer()
 METRICS = MetricsRegistry(keys=PROGRAM_METRIC_KEYS)
+#: Each traced MoE call's expert-load imbalance (its busiest expert's rows
+#: over the mean), a 0-d tensor on the card until :func:`summary` reads it.
+EXPERT_LOADS: collections.deque = collections.deque(maxlen=MAX_SPANS)
+
+
+def record_expert_loads(counts: torch.Tensor) -> None:
+    """Keeps the imbalance of ``counts`` (rows routed to each expert), worked
+    out on their device with no synchronise; it is read with the window."""
+    if TRACER.enabled:
+        c = counts.detach().to(torch.float32)
+        EXPERT_LOADS.append(c.max() / c.mean().clamp(min=1e-30))
 
 
 def enable(on: bool = True) -> None:
@@ -260,6 +274,7 @@ def tracing():
     was = TRACER.enabled
     TRACER.clear()
     METRICS.clear()
+    EXPERT_LOADS.clear()
     TRACER.enabled = True
     try:
         yield TRACER
@@ -312,8 +327,12 @@ def summary(tracer: ProgramTracer = TRACER, metrics: MetricsRegistry = METRICS) 
         row["stream_ms"] = _median([sum(u["stream"]) for u in rows
                                     if u["stream"] and None not in u["stream"]])
         spans[name] = row
-    return {"spans": spans, "counters": metrics.snapshot()["counters"],
-            "dropped": tracer.dropped}
+    out = {"spans": spans, "counters": metrics.snapshot()["counters"],
+           "dropped": tracer.dropped}
+    if EXPERT_LOADS:
+        # The later moe_imbalance metric's source: the median over MoE calls.
+        out["moe_imbalance"] = _median([float(x) for x in EXPERT_LOADS])
+    return out
 
 
 def format_summary(s: dict) -> str:

@@ -76,6 +76,9 @@ PROGRAM_SPAN_NAMES = frozenset({
     "extract.prefix", "extract.quantize",
     # the storage tier's vision executor: one request, its two copies
     "executor.request", "executor.copy_in", "executor.copy_out",
+    # inside a block: latent attention (projections and the flash call), and
+    # the dropless MoE's routing, grouped expert products and combine
+    "attn.mla", "moe.route", "moe.experts", "moe.combine",
 })
 
 #: Counter keys of the running program (``mx.inc("...")`` sites).
@@ -87,6 +90,8 @@ PROGRAM_METRIC_KEYS = frozenset({
     "h2d_bytes_total", "d2h_bytes_total",
     # the LM head's products, labelled route=split_bf16|f32 (kernels/head.py)
     "head_products_total",
+    # (token, expert) rows the dropless MoE routes
+    "moe_routed_rows_total",
 })
 
 

@@ -1543,3 +1543,123 @@ def test_cuda_head_counts_its_route(card):
         assert P.METRICS.snapshot()["counters"] == {"head_products_total{route=f32}": 1.0,
                                                     "head_products_total{route=split_bf16}": 1.0}
     assert outs == {torch.bfloat16: 1, torch.float32: 0}
+
+
+# ---------------------------------------------------------------------------
+# Latent attention (Moonlight): the flash kernels at Q.K head dim 192 and V
+# head dim 128, and the dropless MoE
+# ---------------------------------------------------------------------------
+# b, s, h, hkv, causal: Moonlight's 16 heads, S off every tile, GQA, non-causal.
+MLA_CASES = [
+    (2, 300, 16, 16, True),
+    (1, 1000, 4, 4, True),
+    (1, 129, 4, 2, True),
+    (2, 77, 2, 2, False),
+    (1, 1, 2, 2, True),
+]
+
+
+def _mla_inputs(card, b, s, h, hkv, seed=71):
+    """q, k at 192; v at 128 as a strided view of a fused [k_nope | v]
+    tensor, as the model passes it; dO at 128."""
+    q = torch.from_numpy(_normal((b, s, h, 192), seed)).to(card, torch.bfloat16)
+    k = torch.from_numpy(_normal((b, s, hkv, 192), seed + 1)).to(card, torch.bfloat16)
+    kv = torch.from_numpy(_normal((b, s, hkv, 256), seed + 2)).to(card, torch.bfloat16)
+    do = torch.from_numpy(_normal((b, s, h, 128), seed + 3)).to(card, torch.bfloat16)
+    return q, k, kv[..., 128:], do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,causal", MLA_CASES)
+def test_cuda_flash_mla_matches_plain(card, b, s, h, hkv, causal):
+    """The (192, 128) forward (wgmma) and backward (mma.sync) against the
+    plain versions at bf16's 2e-2, the scale 1/sqrt(192); two backward calls
+    bit-equal; launches counted under the flash keys, shapes by (192, 128)."""
+    q, k, v, do = _mla_inputs(card, b, s, h, hkv)
+    assert not v.is_contiguous()
+    tops.reset_launch_counts()
+    out, lse = tfk.flash_attention_cuda(q, k, v, causal=causal, lse=True)
+    rep = h // hkv
+    exp, exp_lse = tref.flash_attention_lse(q, tops.repeat_kv(k, rep), tops.repeat_kv(v, rep),
+                                            causal=causal)
+    assert out.shape == (b, s, h, 128)
+    torch.testing.assert_close(out.float(), exp.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, exp_lse, atol=2e-2, rtol=2e-2)
+    grads = tfk.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
+    again = tfk.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
+    want = tref.flash_attention_bwd(q, k, v, do, causal=causal)
+    for name, got, g2, w in zip(("dq", "dk", "dv"), grads, again, want):
+        assert got.shape == w.shape and torch.equal(got, g2), name
+        torch.testing.assert_close(got.float(), w.float(), atol=2e-2, rtol=2e-2, msg=name)
+    counts = tops.launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_bwd"]) == (1, 2)
+    assert tfk.fwd_shapes == {(b, s, h, hkv, (192, 128), causal): 1}
+    assert tfk.bwd_shapes == {(b, s, h, hkv, (192, 128), causal): 2}
+
+
+@pytest.mark.cuda
+def test_cuda_flash_mla_under_autograd(card):
+    """ops.flash_attention at (192, 128) under autograd against the plain
+    version's autograd, through FlashAttentionFn (forward, then backward)."""
+    q, k, v, do = _mla_inputs(card, 1, 500, 4, 4, seed=81)
+    got_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    want_in = [t.float().clone().requires_grad_() for t in (q, k, v)]
+    got = tops.flash_attention(*got_in, causal=True)
+    want = tref.flash_attention(*want_in, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    for a, w in zip(torch.autograd.grad(got, got_in, do), torch.autograd.grad(want, want_in, do)):
+        torch.testing.assert_close(a.float(), w.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_mla_tiles_match_the_kernel(card):
+    import ctypes
+    fwd = _build.load("flash_attention", tfk._SIGNATURES)
+    bwd = _build.load("flash_attention_bwd", tfk._BWD_SIGNATURES)
+    for hd, hdv in tfk.SPLIT_HEAD_DIMS + tuple((d, d) for d in tfk.HEAD_DIMS):
+        got = [ctypes.c_int() for _ in range(4)]
+        assert fwd.flash_attention_tile_dv(hd, hdv, *(ctypes.byref(x) for x in got)) == 0
+        assert tuple(x.value for x in got) == tfk.tile_config(hd, hdv)
+        out = (ctypes.c_int * 11)()
+        assert bwd.flash_attention_bwd_tile_dv(1, hd, hdv, out) == 0
+        route, dkdv, dq = tfk.bwd_tile_config(hd, torch.bfloat16, hdv)
+        assert list(out) == [tfk.BWD_ROUTES.index(route), *dkdv, *dq], (hd, hdv)
+    assert tfk.bwd_tile_config(192, torch.bfloat16, 128)[0] == "mma"
+    got = [ctypes.c_int() for _ in range(4)]
+    assert fwd.flash_attention_tile_dv(192, 64, *(ctypes.byref(x) for x in got)) == -1
+    with pytest.raises(ValueError):
+        tfk.flash_attention_cuda(*(t.float() for t in _mla_inputs(card, 1, 8, 2, 2)[:3]))
+
+
+@pytest.mark.cuda
+def test_cuda_moonlight_moe_calls_are_bit_equal(card):
+    """The dropless MoE at Moonlight's widths (64 experts, 6 a token, 2
+    shared), bf16: two calls give the same bits forward and backward (no
+    atomics); every token's 6 rows are computed (no capacity); where the
+    experts the plain f32 reference picks agree, the outputs agree."""
+    from repro_torch.models import plain_moonlight
+    cfg = get_config("moonlight-16b-a3b")
+    moe = tl.DeepSeekMoE(cfg, device=card, generator=torch.Generator(device=card).manual_seed(3))
+    with torch.no_grad():
+        moe.e_score_correction_bias.copy_(0.1 * torch.sin(
+            2.0 * torch.arange(cfg.n_experts, device=card, dtype=torch.float32) + 0.5))
+    x = torch.from_numpy(_normal((2, 256, cfg.d_model), 91)).to(card, torch.bfloat16)
+    x.requires_grad_()
+    outs = []
+    for _ in range(2):
+        y = tl.deepseek_moe_apply(moe, x, cfg)
+        outs.append((y.detach(), torch.autograd.grad(y.float().square().sum(),
+                                                      [x, *moe.parameters()])))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert all(torch.equal(a, c) for a, c in zip(outs[0][1], outs[1][1]))
+    r = tl.deepseek_route(moe, x.detach().reshape(-1, cfg.d_model), cfg)
+    assert int(r.counts.sum()) == 512 * cfg.top_k
+    w = {f"moe.{k}": t.detach().float() for k, t in moe.state_dict().items()}
+    with torch.no_grad():
+        xt = x.detach().float().reshape(-1, cfg.d_model)
+        top_ref, _ = plain_moonlight.route(w, "", xt, cfg)
+        same = (r.top_e.sort(-1).values == top_ref.sort(-1).values).all(-1)
+        want = plain_moonlight.moe(w, "", x.detach().float(), cfg).reshape(-1, cfg.d_model)
+    assert float(same.float().mean()) >= 0.9
+    got = outs[0][0].reshape(-1, cfg.d_model)[same].float()
+    assert float((got - want[same]).norm() / want[same].norm()) <= 1e-2

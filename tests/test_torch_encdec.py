@@ -450,8 +450,9 @@ def test_padded_vocab_is_masked():
     the reference leaves unmasked, agree on the real rows and mask the
     padded ones."""
     cfg = dataclasses.replace(get_smoke_config(ARCH), vocab_size=500)
-    jcfg = dataclasses.replace(j_get_config(ARCH), **{
-        f: getattr(cfg, f) for f in cfg.__dataclass_fields__ if f != "name"})
+    jcfg = j_get_config(ARCH)
+    jcfg = dataclasses.replace(jcfg, **{
+        f: getattr(cfg, f) for f in jcfg.__dataclass_fields__ if f != "name"})
     jmodel = j_build_model(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(1))
     m = _load(jmodel, jparams, cfg)
